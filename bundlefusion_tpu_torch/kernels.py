@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels in ``csrc/``.
+
+The sources compile with nvcc for ``sm_90a`` into ONE shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers: a build takes
+seconds, not minutes). The build runs at first use into ``_build/`` next to
+this file and reruns whenever a source is newer than the library. Nothing is
+built or loaded at import: CPU-only hosts import every module freely.
+
+``-O3 --fmad=false`` and never ``--use_fast_math`` (it changes ``/``,
+``exp`` and ``sqrt``): the kernels round op by op in the order of their plain
+PyTorch twins.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCES = ("tsdf_integrate.cu", "preprocess.cu")
+LIB_PATH = os.path.join(BUILD_DIR, "libbf_kernels.so")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "bf_tsdf_integrate": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P, _I, _I, _P]
+    + [_F] * 8 + [_P],
+    "bf_preprocess": [_P, _P, _P, _P, _I, _I, _I] + [_F] * 6 + [_I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built on this host")
+    return found
+
+
+def build() -> float:
+    """Compile ``csrc/*.cu`` into ``_build/libbf_kernels.so`` if it is missing
+    or older than a source. Returns the seconds spent (0.0 when up to date).
+    The ptxas report (registers, spills per kernel) goes to
+    ``_build/build.log``."""
+    srcs = [os.path.join(CSRC, s) for s in SOURCES]
+    if (
+        os.path.exists(LIB_PATH)
+        and all(os.path.getmtime(LIB_PATH) >= os.path.getmtime(s) for s in srcs)
+    ):
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs], capture_output=True, text=True
+    )
+    with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, LIB_PATH)
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    build()
+    lib = ctypes.CDLL(LIB_PATH)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple | None = None) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
