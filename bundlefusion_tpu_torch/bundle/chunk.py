@@ -97,8 +97,10 @@ def process_chunk(
     """The whole local pipeline for one chunk."""
     s1 = depth_raw.shape[0]
     dev = depth_raw.device
+    # only the filtered depth and the intensity are read below: no geometry
     frames, cache = preprocess_frames_y(
-        depth_raw, y8, cam, cache_cam, sigma_d=sigma_d, sigma_r=sigma_r, filter_depth=filter_depth
+        depth_raw, y8, cam, cache_cam, sigma_d=sigma_d, sigma_r=sigma_r, filter_depth=filter_depth,
+        geometry=False,
     )
     keys = sift.detect_batch(frames.intensity, frames.depth, cam, cfg)
 

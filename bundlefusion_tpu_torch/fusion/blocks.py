@@ -127,21 +127,28 @@ def compact_sorted(vals: torch.Tensor, keep: torch.Tensor, out_capacity: int) ->
     return out[..., :out_capacity]
 
 
+def _sorted_firsts(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keys sorted along the last axis, and where each valid key first occurs."""
+    s, _ = torch.sort(keys, dim=-1)
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    return s, first & (s != INVALID_KEY)
+
+
 def dedup_keys_counted(keys: torch.Tensor, out_capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Sort + drop duplicates + compact to [..., out_capacity] along the last
     axis; also returns how many unique keys the capacity cut DROPPED (int32).
     The deterministic replacement for atomic hash insertion."""
-    s, _ = torch.sort(keys, dim=-1)
-    first = torch.ones_like(s, dtype=torch.bool)
-    first[..., 1:] = s[..., 1:] != s[..., :-1]
-    valid_first = first & (s != INVALID_KEY)
+    s, valid_first = _sorted_firsts(keys)
     n_uniq = torch.sum(valid_first, dim=-1).to(torch.int32)
     truncated = torch.clamp(n_uniq - out_capacity, min=0)
     return compact_sorted(s, valid_first, out_capacity), truncated
 
 
 def dedup_keys(keys: torch.Tensor, out_capacity: int) -> torch.Tensor:
-    return dedup_keys_counted(keys, out_capacity)[0]
+    """:func:`dedup_keys_counted` without the count."""
+    s, valid_first = _sorted_firsts(keys)
+    return compact_sorted(s, valid_first, out_capacity)
 
 
 def allocate(

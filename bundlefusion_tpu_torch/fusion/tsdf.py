@@ -6,10 +6,13 @@ integration with depth-scaled truncation, and exact **de-integration** (the
 weighted running mean is reversible: de-integrate == integrate with negated
 weight).
 
-The projective update of one row of blocks is kernel K1
-(``csrc/tsdf_integrate.cu``), reached through :func:`integrate_blocks`. Its
-plain twin :func:`_integrate_blocks_torch` sits beside it and runs for CPU
-tensors only. The pools are updated IN PLACE (the JAX package donates them).
+The projective update of a batch's update rows (de-integrations first,
+then integrations, each row one frame's block list) is kernel K1
+(``csrc/tsdf_integrate.cu``), ONE launch for all rows, reached through
+:func:`integrate_blocks`. Its plain twin :func:`_integrate_rows_torch` (the
+single-row update :func:`_integrate_blocks_torch` applied row by row) sits
+beside it and runs for CPU tensors only. The pools are updated IN PLACE (the
+JAX package donates them).
 
 The port has no sampling window (the TPU kernel's one-hot MXU window is
 gone), so no voxel is ever skipped for lying outside one and every
@@ -32,8 +35,10 @@ from .blocks import (
     INVALID_KEY,
     BlockTable,
     allocate,
+    dedup_keys,
     dedup_keys_counted,
     lookup,
+    lower_bound,
     pack_key,
     unpack_key,
     voxel_centers,
@@ -181,46 +186,111 @@ def _integrate_blocks_torch(
     table.color[slots] = torch.where(m, upd_col.reshape(-1, 1536), old_col.reshape(-1, 1536))
 
 
+@dataclass
+class FuseRows:
+    """The update rows of one K1 launch, applied in order. Row r updates the
+    applied entries of its block list with frame ``fidx[r]`` at
+    ``params[r]`` (sign +1 integrates, -1 de-integrates)."""
+
+    keys: torch.Tensor  # [R, cap] int32 per-row update-key lists
+    slots: torch.Tensor  # [R, cap] int32 data slots of the keys
+    masks: torch.Tensor  # [R, cap] bool applied entries
+    fidx: torch.Tensor  # [R] int64 frame-storage index per row
+    params: torch.Tensor  # [R, 17] float32 (row_params)
+
+    def inverse(self) -> "FuseRows":
+        """The rows that undo these: reversed order, negated signs (exact in
+        the weights while no voxel reaches the weight cap)."""
+        params = self.params.flip(0)
+        params[:, 16] = -params[:, 16]
+        return FuseRows(self.keys.flip(0), self.slots.flip(0), self.masks.flip(0), self.fidx.flip(0), params)
+
+
+def _integrate_rows_torch(
+    table: BlockTable, rows: FuseRows, depths: torch.Tensor, colors8: torch.Tensor, cfg: AppConfig
+) -> None:
+    """Plain twin of K1: the single-row update applied row by row."""
+    for r in range(rows.fidx.shape[0]):
+        f = rows.fidx[r]
+        _integrate_blocks_torch(
+            table, rows.slots[r], rows.masks[r], depths[f], colors8[f], rows.params[r], cfg
+        )
+
+
+def fuse_worklist(rows: FuseRows, capacity: int) -> torch.Tensor:
+    """K1's work list, built on the device with a fixed size and no host
+    read: the sorted union of the rows' applied keys, INVALID_KEY-padded to
+    min(R * cap, capacity) entries (applied keys are table entries, so that
+    always holds the union). The kernel finds an entry's position in row r
+    by a binary search of the row's sorted key list; the row applies the
+    entry where the key is there and its mask is set."""
+    r, cap = rows.keys.shape
+    applied_keys = torch.where(rows.masks, rows.keys, INVALID_KEY)
+    return dedup_keys(applied_keys.reshape(-1), min(r * cap, capacity))
+
+
+def _log2_ratio(n: int, m: int, what: str) -> int:
+    shift = (n // m).bit_length() - 1
+    if m << shift != n:
+        raise ValueError(f"{what}: colour {m} must divide depth {n} by a power of two")
+    return shift
+
+
 def integrate_blocks(
     table: BlockTable,
-    slots: torch.Tensor,  # [B] int32
-    mask: torch.Tensor,  # [B] bool
-    depth: torch.Tensor,  # [H, W] float32
-    color8: torch.Tensor,  # [Hc, Wc, 3] uint8
-    params: torch.Tensor,  # [17] float32 on the device
+    rows: FuseRows,
+    depths: torch.Tensor,  # [B, H, W] float32 frame storage (rows index into it)
+    colors8: torch.Tensor,  # [B, Hc, Wc, 3] uint8
     cfg: AppConfig,
 ) -> None:
-    """Kernel K1: integrate (sign +1) or exactly de-integrate (sign -1) one
-    row of update blocks, in place. CUDA tensors launch the kernel; CPU
-    tensors run the plain twin."""
-    if not depth.is_cuda:
-        _integrate_blocks_torch(table, slots, mask, depth, color8, params, cfg)
+    """Kernel K1: integrate (sign +1) or exactly de-integrate (sign -1) every
+    row of ``rows`` in order, in place, in ONE launch. Each row's key list
+    is sorted ascending (INVALID_KEY last), as dedup_keys leaves it. CUDA
+    tensors launch the kernel; CPU tensors run the plain twin."""
+    if not depths.is_cuda:
+        _integrate_rows_torch(table, rows, depths, colors8, cfg)
         return
-    h, w = depth.shape
-    hc, wc = color8.shape[0], color8.shape[1]
-    if h % hc or w % wc:
-        raise ValueError(f"colour {hc}x{wc} must integer-divide depth {h}x{w}")
-    b = slots.shape[0]
-    rows = table.capacity + 1
-    kernels.require(table.sdf, "sdf", torch.float32, (rows, 512))
-    kernels.require(table.weight, "weight", torch.float32, (rows, 512))
-    kernels.require(table.color, "color", torch.float32, (rows, 1536))
-    kernels.require(table.key_of_slot, "key_of_slot", torch.int32)
-    kernels.require(slots, "slots", torch.int32, (b,))
-    kernels.require(mask, "mask", torch.bool, (b,))
-    kernels.require(depth, "depth", torch.float32)
-    kernels.require(color8, "color", torch.uint8, (hc, wc, 3))
-    kernels.require(params, "params", torch.float32, (17,))
-    err = kernels.library().bf_tsdf_integrate(
+    r, cap = rows.keys.shape
+    nrows = table.capacity + 1
+    kernels.require(table.sdf, "sdf", torch.float32, (nrows, 512))
+    kernels.require(table.weight, "weight", torch.float32, (nrows, 512))
+    kernels.require(table.color, "color", torch.float32, (nrows, 1536))
+    for t, name, dtype in ((rows.keys, "keys", torch.int32), (rows.slots, "slots", torch.int32),
+                           (rows.masks, "masks", torch.bool)):
+        kernels.require(t, name, dtype, (r, cap), contiguous=False)
+        if t.stride(1) != 1:
+            raise ValueError(f"{name}: each row must be contiguous")
+    kernels.require(rows.fidx, "fidx", torch.int64, (r,))
+    kernels.require(rows.params, "params", torch.float32, (r, 17))
+    kernels.require(depths, "depths", torch.float32)
+    kernels.require(colors8, "colors", torch.uint8)
+    if depths.dim() != 3 or colors8.dim() != 4 or colors8.shape[0] != depths.shape[0] or colors8.shape[3] != 3:
+        raise ValueError(f"expected depths [B, H, W] and colours [B, Hc, Wc, 3], got "
+                         f"{tuple(depths.shape)} and {tuple(colors8.shape)}")
+    rgba = torch.nn.functional.pad(colors8, (0, 1))  # one 4-byte load per colour sample
+    _launch_fuse(table, rows, fuse_worklist(rows, table.capacity), depths, rgba, cfg)
+
+
+def _launch_fuse(table: BlockTable, rows: FuseRows, union: torch.Tensor, depths: torch.Tensor,
+                 rgba: torch.Tensor, cfg: AppConfig) -> None:
+    """The K1 launch itself, on a work list and RGBA colour frames that
+    :func:`integrate_blocks` has checked and built."""
+    _, h, w = depths.shape
+    sy, sx = _log2_ratio(h, rgba.shape[1], "height"), _log2_ratio(w, rgba.shape[2], "width")
+    r, cap = rows.keys.shape
+    err = kernels.library().bf_tsdf_fuse(
         table.sdf.data_ptr(), table.weight.data_ptr(), table.color.data_ptr(),
-        table.key_of_slot.data_ptr(), slots.data_ptr(), mask.data_ptr(), b,
-        depth.data_ptr(), h, w, color8.data_ptr(), hc, wc, params.data_ptr(),
+        union.data_ptr(), union.shape[0],
+        rows.keys.data_ptr(), rows.keys.stride(0), rows.slots.data_ptr(), rows.slots.stride(0),
+        rows.masks.data_ptr(), rows.masks.stride(0), cap, r,
+        depths.data_ptr(), h, w, rgba.data_ptr(), sy, sx,
+        rows.fidx.data_ptr(), rows.params.data_ptr(),
         float(np.float32(cfg.voxel_size)), float(np.float32(BLOCK * cfg.voxel_size)),
         cfg.truncation, cfg.truncation_scale, cfg.max_integration_distance,
         cfg.max_integration_weight, cfg.integration_weight_sample, _INV255,
-        kernels.stream_ptr(depth.device),
+        kernels.stream_ptr(depths.device),
     )
-    kernels.check(err, "tsdf_integrate")
+    kernels.check(err, "tsdf_fuse")
     integrate_blocks.launches += 1
 
 
@@ -278,29 +348,23 @@ def _union_counted(upd_keys: torch.Tensor, union_cap: int) -> tuple[torch.Tensor
     return dedup_keys_counted(upd_keys.reshape(-1), union_cap)
 
 
-def _fuse_rows_scan(
+def _fuse_rows(
     table: BlockTable,
-    depths: torch.Tensor,  # [B, H, W] frame storage (rows index into it)
-    colors8: torch.Tensor,  # [B, Hc, Wc, 3] uint8
-    fidx: list[int],  # [N] frame-storage index per row
-    poses: torch.Tensor,  # [N, 4, 4]
-    active: torch.Tensor,  # [N] bool
     keys_rows: torch.Tensor,  # [N, cap] per-row update-key lists
     rec_rows: torch.Tensor,  # [N, cap] recorded update masks
+    active: torch.Tensor,  # [N] bool
+    fidx: torch.Tensor,  # [N] int64 frame-storage index per row
+    poses: torch.Tensor,  # [N, 4, 4]
     signs: torch.Tensor,  # [N] float32 — +1 integrate / -1 de-integrate
     cam: CameraModel,
-    cfg: AppConfig,
-) -> tuple[BlockTable, torch.Tensor]:
-    """Run K1 over the rows in order (the max-weight clip makes order matter).
-    Allocation has already happened, so the index arrays are row-invariant
-    and every row's lookup runs as one batched search. Returns (table,
-    applied masks [N, cap])."""
+) -> FuseRows:
+    """The K1 rows of a batch. Allocation has already happened, so every
+    row's lookup runs as one batched search; all of it stays on the device."""
     slots, found = lookup(table, keys_rows)
-    masks = found & rec_rows & active[:, None]
-    params = row_params(poses, signs, cam)
-    for i, fi in enumerate(fidx):
-        integrate_blocks(table, slots[i], masks[i], depths[fi], colors8[fi], params[i], cfg)
-    return table, masks
+    return FuseRows(
+        keys=keys_rows, slots=slots, masks=found & rec_rows & active[:, None],
+        fidx=fidx, params=row_params(poses, signs, cam),
+    )
 
 
 def _zero(device) -> torch.Tensor:
@@ -316,14 +380,18 @@ def integrate(
     cfg: AppConfig,
 ) -> tuple[BlockTable, FuseDiag]:
     """Allocate + integrate one frame. Returns (table, FuseDiag)."""
+    dev = depth.device
     keys = frame_alloc_keys(depth, pose_c2w, cam, cfg)
     upd_keys, f_trunc = dedup_keys_counted(keys, cfg.blocks_per_frame_cap)
     table, overflow = allocate(table, upd_keys, assume_unique_sorted=True)
-    slots, mask = lookup(table, upd_keys)
-    params = row_params(pose_c2w[None], torch.ones(1, device=depth.device), cam)[0]
-    integrate_blocks(table, slots, mask, depth, color_wire(color), params, cfg)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    rows = _fuse_rows(
+        table, upd_keys[None], one[:, None], one, torch.zeros(1, dtype=torch.int64, device=dev),
+        pose_c2w[None], torch.ones(1, device=dev), cam,
+    )
+    integrate_blocks(table, rows, depth[None], color_wire(color)[None], cfg)
     return table, FuseDiag(
-        overflow=overflow, upd_truncated=f_trunc, patch_overflow=_zero(depth.device), upd_mask=mask
+        overflow=overflow, upd_truncated=f_trunc, patch_overflow=_zero(dev), upd_mask=rows.masks[0]
     )
 
 
@@ -337,23 +405,23 @@ def integrate_batch(
     cfg: AppConfig,
 ) -> tuple[BlockTable, FuseDiag]:
     """Integrate a frame batch: one allocation merge of the rows' key union,
-    then one K1 launch per row."""
+    then one K1 launch over all rows."""
     b = depths.shape[0]
     cap = cfg.blocks_per_frame_cap
     dev = depths.device
     upd_keys_all, f_truncs = _upd_keys_batch(depths, poses, valid, cam, cfg)
     union, union_overflow = _union_counted(upd_keys_all, cap * 4)
     table, overflow = allocate(table, union, assume_unique_sorted=True)
-    table, upd_masks = _fuse_rows_scan(
-        table, depths, color_wire(colors), list(range(b)), poses, valid, upd_keys_all,
-        torch.ones((b, cap), dtype=torch.bool, device=dev),
-        torch.ones(b, device=dev), cam, cfg,
+    rows = _fuse_rows(
+        table, upd_keys_all, torch.ones((b, cap), dtype=torch.bool, device=dev), valid,
+        torch.arange(b, device=dev), poses, torch.ones(b, device=dev), cam,
     )
+    integrate_blocks(table, rows, depths, color_wire(colors), cfg)
     return table, FuseDiag(
         overflow=overflow + union_overflow,
         upd_truncated=torch.sum(f_truncs).to(torch.int32),
         patch_overflow=_zero(dev),
-        upd_mask=upd_masks,
+        upd_mask=rows.masks,
         upd_keys=upd_keys_all,
     )
 
@@ -368,16 +436,17 @@ def deintegrate_batch(
     cfg: AppConfig,
     upd_masks: torch.Tensor | None = None,  # [B, cap] recorded at integrate time
 ) -> BlockTable:
-    """Batched exact removal (one K1 launch per row, sign -1)."""
+    """Batched exact removal (one K1 launch over all rows, sign -1)."""
     b = depths.shape[0]
     dev = depths.device
     if upd_masks is None:
         upd_masks = torch.ones((b, cfg.blocks_per_frame_cap), dtype=torch.bool, device=dev)
     upd_keys_all, _ = _upd_keys_batch(depths, poses, valid, cam, cfg)
-    table, _ = _fuse_rows_scan(
-        table, depths, color_wire(colors), list(range(b)), poses, valid, upd_keys_all,
-        upd_masks, -torch.ones(b, device=dev), cam, cfg,
+    rows = _fuse_rows(
+        table, upd_keys_all, upd_masks, valid, torch.arange(b, device=dev), poses,
+        -torch.ones(b, device=dev), cam,
     )
+    integrate_blocks(table, rows, depths, color_wire(colors), cfg)
     return table
 
 
@@ -396,8 +465,33 @@ def fuse_batch(
     deint_rows: int | None = None,  # only the LAST deint_rows rows may de-integrate
 ) -> tuple[BlockTable, FuseDiag]:
     """De-integrate + (re-)integrate a frame batch: one allocation merge, then
-    K1 over B + deint_rows rows, all de-integrations first. Returns (table,
-    FuseDiag) with the [B, cap] re-integration record in ``upd_mask``."""
+    ONE K1 launch over B + deint_rows rows, all de-integrations first.
+    Returns (table, FuseDiag) with the [B, cap] re-integration record in
+    ``upd_mask``."""
+    table, rows, diag = fuse_batch_rows(
+        table, depths, old_poses, new_poses, deint_mask, reint_mask, upd_masks_rec, cam, cfg,
+        upd_keys_rec, deint_rows,
+    )
+    integrate_blocks(table, rows, depths, color_wire(colors), cfg)
+    return table, diag
+
+
+def fuse_batch_rows(
+    table: BlockTable,
+    depths: torch.Tensor,
+    old_poses: torch.Tensor,
+    new_poses: torch.Tensor,
+    deint_mask: torch.Tensor,
+    reint_mask: torch.Tensor,
+    upd_masks_rec: torch.Tensor,
+    cam: CameraModel,
+    cfg: AppConfig,
+    upd_keys_rec: torch.Tensor | None = None,
+    deint_rows: int | None = None,
+) -> tuple[BlockTable, FuseRows, FuseDiag]:
+    """:func:`fuse_batch` up to its K1 launch: the allocation merge and the
+    rows (deint_rows de-integrations, then B integrations). Returns (table,
+    rows, FuseDiag)."""
     b = depths.shape[0]
     dr = b if deint_rows is None else deint_rows
     lo = b - dr
@@ -409,21 +503,22 @@ def fuse_batch(
         deint_keys, _ = _upd_keys_batch(depths[lo:], old_poses[lo:], deint_mask[lo:], cam, cfg)
     else:
         deint_keys = torch.where(deint_mask[lo:, None], upd_keys_rec[lo:], INVALID_KEY)
-    keys2 = torch.cat([deint_keys, reint_keys])
     union, union_overflow = _union_counted(reint_keys, cap * 4)
     table, overflow = allocate(table, union, assume_unique_sorted=True)
-    act2 = torch.cat([deint_mask[lo:], reint_mask])
-    fidx2 = list(range(lo, b)) + list(range(b))
-    poses2 = torch.cat([old_poses[lo:], new_poses])
-    rec2 = torch.cat([upd_masks_rec[lo:], torch.ones((b, cap), dtype=torch.bool, device=dev)])
-    sign2 = torch.cat([-torch.ones(dr, device=dev), torch.ones(b, device=dev)])
-    table, masks2 = _fuse_rows_scan(
-        table, depths, color_wire(colors), fidx2, poses2, act2, keys2, rec2, sign2, cam, cfg
+    rows = _fuse_rows(
+        table,
+        torch.cat([deint_keys, reint_keys]),
+        torch.cat([upd_masks_rec[lo:], torch.ones((b, cap), dtype=torch.bool, device=dev)]),
+        torch.cat([deint_mask[lo:], reint_mask]),
+        torch.cat([torch.arange(lo, b, device=dev), torch.arange(b, device=dev)]),
+        torch.cat([old_poses[lo:], new_poses]),
+        torch.cat([-torch.ones(dr, device=dev), torch.ones(b, device=dev)]),
+        cam,
     )
-    return table, FuseDiag(
+    return table, rows, FuseDiag(
         overflow=overflow + union_overflow,
         upd_truncated=torch.sum(trunc_r).to(torch.int32),
         patch_overflow=_zero(dev),
-        upd_mask=masks2[dr:],
+        upd_mask=rows.masks[dr:],
         upd_keys=reint_keys,
     )

@@ -1,10 +1,13 @@
 """Frame preprocessing (port of ``bundlefusion_tpu.ops.preprocess``).
 
 The bilateral filter -> unprojection -> normals chain of
-``_preprocess_core`` is kernel K2 (``csrc/preprocess.cu``), reached through
-:func:`fused_preprocess`; its plain twin :func:`_preprocess_chain_torch`
-sits beside it and runs for CPU tensors only. Everything downstream — the
-cache downsample, the banded Gaussian, the gradients — is plain PyTorch.
+``_preprocess_core`` is kernel K2 (``csrc/preprocess.cu``, one launch),
+reached through :func:`fused_preprocess`; its plain twin
+:func:`_preprocess_chain_torch` sits beside it and runs for CPU tensors only.
+The point and normal maps are optional (``geometry``): the chunk pipeline
+reads only the filtered depth, so it asks for that alone. Everything
+downstream — the cache downsample, the banded Gaussian, the gradients — is
+plain PyTorch.
 
 All functions take [..., H, W] (or [..., H, W, C]) and broadcast over
 leading axes. Invalid depth is 0.
@@ -154,17 +157,19 @@ class ProcessedFrames:
     """Full-resolution per-frame products."""
 
     depth: torch.Tensor  # [N, H, W] filtered depth
-    points: torch.Tensor  # [N, H, W, 3]
-    normals: torch.Tensor  # [N, H, W, 3]
+    points: torch.Tensor | None  # [N, H, W, 3]; None when geometry was not asked for
+    normals: torch.Tensor | None  # [N, H, W, 3]; None likewise
     intensity: torch.Tensor  # [N, H, W]
     color: torch.Tensor  # [N, 1, 1, 3] placeholder (nothing reads it)
 
 
 def _preprocess_chain_torch(
-    depth: torch.Tensor, cam: CameraModel, sigma_d: float, sigma_r: float, radius: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    depth: torch.Tensor, cam: CameraModel, sigma_d: float, sigma_r: float, radius: int,
+    geometry: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
     """Plain PyTorch twin of kernel K2, in the TPU kernel's operation order:
-    bilateral filter, unprojection, normals cross(dy, dx).
+    bilateral filter, unprojection, normals cross(dy, dx); (fdepth, None,
+    None) without ``geometry``.
 
     Every operand is a tensor on the data's device, so each op rounds as the
     kernel's does: the spatial weights come from the same device ``exp`` as
@@ -189,6 +194,8 @@ def _preprocess_chain_torch(
             acc = acc + wgt * d_n
             wacc = wacc + wgt
     fdepth = torch.where(valid & (wacc > 1e-8), acc / torch.clamp(wacc, min=1e-8), 0.0)
+    if not geometry:
+        return fdepth, None, None
 
     v, u = pixel_grid(depth.shape[-2], depth.shape[-1], dev)
     z = fdepth
@@ -222,19 +229,29 @@ def fused_preprocess(
     sigma_d: float = 2.0,
     sigma_r: float = 0.1,
     radius: int = 3,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel K2: (fdepth [N,H,W], points [N,H,W,3], normals [N,H,W,3]).
-    ``radius=0`` is the identity filter. CUDA tensors launch the kernel; CPU
-    tensors run the plain twin."""
+    geometry: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """Kernel K2: (fdepth [N,H,W], points [N,H,W,3], normals [N,H,W,3]), or
+    (fdepth, None, None) without ``geometry``. ``radius=0`` is the identity
+    filter; the kernel takes radii up to 3. CUDA tensors launch the kernel;
+    CPU tensors run the plain twin."""
     if not depth.is_cuda:
-        return _preprocess_chain_torch(depth, cam, sigma_d, sigma_r, radius)
+        return _preprocess_chain_torch(depth, cam, sigma_d, sigma_r, radius, geometry)
     kernels.require(depth, "depth", torch.float32)
+    if depth.dim() != 3:
+        raise ValueError(f"depth: expected [N, H, W], got {tuple(depth.shape)}")
+    if not 0 <= radius <= 3:
+        raise ValueError(f"radius {radius}: the kernel's halo holds radii 0..3")
     n, h, w = depth.shape
     fdepth = torch.empty_like(depth)
-    points = torch.empty((n, h, w, 3), dtype=torch.float32, device=depth.device)
-    normals = torch.empty_like(points)
+    points = normals = None
+    if geometry:
+        points = torch.empty((n, h, w, 3), dtype=torch.float32, device=depth.device)
+        normals = torch.empty_like(points)
     err = kernels.library().bf_preprocess(
-        depth.data_ptr(), fdepth.data_ptr(), points.data_ptr(), normals.data_ptr(),
+        depth.data_ptr(), fdepth.data_ptr(),
+        None if points is None else points.data_ptr(),
+        None if normals is None else normals.data_ptr(),
         n, h, w, cam.fx, cam.fy, cam.cx, cam.cy,
         1.0 / (2.0 * sigma_d * sigma_d), 1.0 / (2.0 * sigma_r * sigma_r), radius,
         kernels.stream_ptr(depth.device),
@@ -255,14 +272,18 @@ def preprocess_frames_y(
     sigma_d: float = 2.0,
     sigma_r: float = 0.1,
     filter_depth: bool = True,
+    geometry: bool = True,
 ) -> tuple[ProcessedFrames, FrameCache]:
     """Preprocess a frame batch from the v2 wire (uint16 mm depth, uint8
-    luma). ``ProcessedFrames.color`` is a placeholder: nothing reads it."""
+    luma). ``ProcessedFrames.color`` is a placeholder: nothing reads it.
+    Without ``geometry`` the full-resolution points and normals are None."""
     if depth_raw.dtype == torch.int16:
         depth_raw = wire_depth_to_m(depth_raw)
     intensity = y8.to(torch.float32) * (1.0 / 255.0) if y8.dtype == torch.uint8 else y8
     color = torch.zeros((intensity.shape[0], 1, 1, 3), dtype=torch.float32, device=y8.device)
-    return _preprocess_core(depth_raw, intensity, color, cam, cache_cam, sigma_d, sigma_r, filter_depth)
+    return _preprocess_core(
+        depth_raw, intensity, color, cam, cache_cam, sigma_d, sigma_r, filter_depth, geometry
+    )
 
 
 def wire_depth_to_m(d16: torch.Tensor) -> torch.Tensor:
@@ -270,10 +291,10 @@ def wire_depth_to_m(d16: torch.Tensor) -> torch.Tensor:
     return (d16.to(torch.int32) & 0xFFFF).to(torch.float32) * 1e-3
 
 
-def _preprocess_core(depth_raw, intensity, color, cam, cache_cam, sigma_d, sigma_r, filter_depth):
+def _preprocess_core(depth_raw, intensity, color, cam, cache_cam, sigma_d, sigma_r, filter_depth, geometry):
     depth = torch.where((depth_raw > 0.0) & torch.isfinite(depth_raw), depth_raw, 0.0)
     depth, points, normals = fused_preprocess(
-        depth.contiguous(), cam, sigma_d, sigma_r, radius=3 if filter_depth else 0
+        depth.contiguous(), cam, sigma_d, sigma_r, radius=3 if filter_depth else 0, geometry=geometry
     )
     fh = cam.height // cache_cam.height
     fw = cam.width // cache_cam.width

@@ -98,6 +98,16 @@ def _row(frames, i, table_j, table_t):
     return table_j, table_t, (sj, mj), (st, mt)
 
 
+def _one_row(frames, i, slots, mask, sign):
+    """K1 rows holding frame i's update row alone (its keys are not read on
+    the CPU)."""
+    pose = torch.as_tensor(frames["poses"][i : i + 1])
+    return tt.FuseRows(
+        keys=torch.zeros_like(slots)[None], slots=slots[None], masks=mask[None],
+        fidx=torch.tensor([i]), params=tt.row_params(pose, torch.full((1,), sign), frames["cam"]),
+    )
+
+
 def test_interop_round_trip(prefilled):
     t = _port_table(prefilled)
     back = interop.state_to_numpy(t)
@@ -113,8 +123,8 @@ def test_k1_twin_matches_xla(frames, prefilled):
         sj, mj, table_j, jnp.asarray(f["depth"][3]), jnp.asarray(f["colf"][3]), jnp.asarray(f["poses"][3]),
         f["cam"], APP_J, 1.0,
     )
-    params = tt.row_params(torch.as_tensor(f["poses"][3:4]), torch.ones(1), f["cam"])[0]
-    tt.integrate_blocks(table_t, st, mt, torch.as_tensor(f["depth"][3]), torch.as_tensor(f["c8"][3]), params, APP_T)
+    rows = _one_row(f, 3, st, mt, 1.0)
+    tt.integrate_blocks(table_t, rows, torch.as_tensor(f["depth"]), torch.as_tensor(f["c8"]), APP_T)
     assert int(mt.sum()) > 50
     _assert_tables(ref, table_t)
 
@@ -124,11 +134,10 @@ def test_deintegrate_restores_weights_exactly(frames, prefilled):
     table_j = jax.tree.map(jnp.asarray, prefilled)
     _, table_t, _, (st, mt) = _row(f, 4, table_j, _port_table(prefilled))
     before_w = table_t.weight.clone()
-    args = (torch.as_tensor(f["depth"][4]), torch.as_tensor(f["c8"][4]))
-    pose = torch.as_tensor(f["poses"][4:5])
-    tt.integrate_blocks(table_t, st, mt, *args, tt.row_params(pose, torch.ones(1), f["cam"])[0], APP_T)
+    args = (torch.as_tensor(f["depth"]), torch.as_tensor(f["c8"]))
+    tt.integrate_blocks(table_t, _one_row(f, 4, st, mt, 1.0), *args, APP_T)
     assert not torch.equal(table_t.weight, before_w)
-    tt.integrate_blocks(table_t, st, mt, *args, tt.row_params(pose, -torch.ones(1), f["cam"])[0], APP_T)
+    tt.integrate_blocks(table_t, _one_row(f, 4, st, mt, -1.0), *args, APP_T)
     assert torch.equal(table_t.weight[:-1], before_w[:-1])
     fresh = (before_w[:-1] == 0)
     assert float(table_t.sdf[:-1][fresh].abs().max()) < 1e-6
@@ -164,6 +173,84 @@ def test_fuse_batch_matches_jax(frames, prefilled):
     np.testing.assert_array_equal(np.asarray(dj.upd_keys), dt.upd_keys.numpy())
     assert int(dt.upd_mask.sum()) > 100
     _assert_tables(tj, t_t)
+
+
+@pytest.fixture(scope="module")
+def three_rows(frames, prefilled):
+    """K1 rows over the prefilled table: frame 3 integrates, frame 5's row is
+    fully masked, frame 4 integrates with every third entry masked. Frames
+    3 and 4 share most of their blocks."""
+    f = frames
+    table = _port_table(prefilled)
+    ids = torch.tensor([3, 5, 4])
+    depths = torch.as_tensor(f["depth"])
+    keys, _ = tt._upd_keys_batch(depths[ids], torch.as_tensor(f["poses"][ids]), torch.ones(3, dtype=torch.bool), f["cam"], APP_T)
+    union, _ = tt._union_counted(keys, keys.numel())
+    table, _ = tb.allocate(table, union, assume_unique_sorted=True)
+    rec = torch.ones_like(keys, dtype=torch.bool)
+    rec[2, ::3] = False
+    active = torch.tensor([True, False, True])
+    rows = tt._fuse_rows(table, keys, rec, active, ids, torch.as_tensor(f["poses"][ids]), torch.ones(3), f["cam"])
+    return table, rows
+
+
+def _kernel_positions(rows, union):
+    """K1's rule for an entry's position in each row: a binary search of the
+    row's sorted key list; -1 where the key is absent or masked. [U, R]."""
+    cap = rows.keys.shape[1]
+    pos = []
+    for r in range(rows.keys.shape[0]):
+        j = torch.clamp(torch.searchsorted(rows.keys[r].contiguous(), union), max=cap - 1)
+        hit = (rows.keys[r, j] == union) & rows.masks[r, j]
+        pos.append(torch.where(hit, j, -1))
+    return torch.stack(pos, dim=1)
+
+
+def test_fuse_worklist_covers_each_applied_entry_once(three_rows):
+    table, rows = three_rows
+    union = tt.fuse_worklist(rows, table.capacity)
+    n = int((union != tb.INVALID_KEY).sum())
+    applied = rows.masks
+    r, j = torch.nonzero(applied, as_tuple=True)
+    keys = rows.keys[r, j]
+    # repeated blocks: the union is smaller than the applied entries
+    assert n == len(set(keys.tolist())) < int(applied.sum())
+    assert union.shape[0] == min(rows.keys.numel(), table.capacity)
+    assert torch.all(union[1:n] > union[: n - 1]) and torch.all(union[n:] == tb.INVALID_KEY)
+    # every applied (row, entry) found at its position under exactly one union entry
+    pos = _kernel_positions(rows, union[:n])
+    u = torch.searchsorted(union[:n], keys)
+    assert torch.equal(union[u], keys)
+    assert torch.equal(pos[u, r], j)
+    # and no unapplied one: the fully masked row and the masked entries are absent
+    assert int((pos >= 0).sum()) == int(applied.sum())
+    assert torch.all(pos[:, 1] == -1)
+    assert int(applied[2].sum()) < int((rows.keys[2] != tb.INVALID_KEY).sum())
+
+
+def test_k1_multi_row_plain_matches_row_loop(frames, three_rows):
+    """One multi-row call equals the row loop (one single-row update per
+    row), and so does the kernel's schedule: the row updates driven by the
+    work list (each union entry, with the rows that apply it), bit for bit."""
+    table, rows = three_rows
+    depths, c8 = torch.as_tensor(frames["depth"]), torch.as_tensor(frames["c8"])
+
+    def copy():
+        return dataclasses.replace(table, sdf=table.sdf.clone(), weight=table.weight.clone(), color=table.color.clone())
+
+    fused, loop, listed = copy(), copy(), copy()
+    tt.integrate_blocks(fused, rows, depths, c8, APP_T)
+    union = tt.fuse_worklist(rows, table.capacity)
+    pos = _kernel_positions(rows, union)
+    union_slots, _ = tb.lookup(table, union)
+    for r in range(3):
+        f = int(rows.fidx[r])
+        tt._integrate_blocks_torch(loop, rows.slots[r], rows.masks[r], depths[f], c8[f], rows.params[r], APP_T)
+        tt._integrate_blocks_torch(listed, union_slots, pos[:, r] >= 0, depths[f], c8[f], rows.params[r], APP_T)
+    assert not torch.equal(fused.weight, table.weight)
+    for t in (loop, listed):
+        for k in ("sdf", "weight", "color"):
+            assert torch.equal(getattr(fused, k), getattr(t, k)), k
 
 
 def test_allocate_lookup_gc_match_jax():

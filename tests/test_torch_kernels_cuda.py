@@ -38,14 +38,25 @@ def frames(dev):
     return seq.camera, depth, c8, torch.as_tensor(seq.poses, device=dev)
 
 
-def _row(dev, frames):
+def _fuse(dev, frames):
+    """A table holding frames 0..2, and the rows of a fuse_batch over frames
+    0..4 that de-integrates 0..2 and re-integrates all five at moved poses
+    (R = 10 rows, two of them fully masked; most blocks in several rows)."""
     cam, depth, c8, poses = frames
     table = blocks.make_table(APP.block_capacity, dev)
-    table, _ = tsdf.integrate_batch(table, depth[:3], c8[:3], poses[:3], torch.ones(3, dtype=torch.bool, device=dev), cam, APP)
-    keys, _ = tsdf._upd_keys_batch(depth[3:4], poses[3:4], torch.ones(1, dtype=torch.bool, device=dev), cam, APP)
-    table, _ = blocks.allocate(table, keys[0], assume_unique_sorted=True)
-    slots, mask = blocks.lookup(table, keys[0])
-    return table, slots, mask
+    ones = torch.ones(5, dtype=torch.bool, device=dev)
+    table, diag = tsdf.integrate_batch(table, depth[:3], c8[:3], poses[:3], ones[:3], cam, APP)
+    moved = poses.clone()
+    moved[:, :3, 3] += torch.tensor([0.01, -0.004, 0.006], device=dev)
+    rec = torch.zeros((5, APP.blocks_per_frame_cap), dtype=torch.bool, device=dev)
+    rec[:3] = diag.upd_mask
+    keys = torch.full_like(rec, blocks.INVALID_KEY, dtype=torch.int32)
+    keys[:3] = diag.upd_keys
+    table, rows, _ = tsdf.fuse_batch_rows(
+        table, depth, poses, moved, ones & (torch.arange(5, device=dev) < 3), ones, rec, cam, APP,
+        upd_keys_rec=keys,
+    )
+    return table, rows
 
 
 def _copy(t):
@@ -53,13 +64,13 @@ def _copy(t):
 
 
 def test_k1_kernel_matches_twin(dev, frames):
-    cam, depth, c8, poses = frames
-    table, slots, mask = _row(dev, frames)
-    params = tsdf.row_params(poses[3:4], torch.ones(1, device=dev), cam)[0]
+    _, depth, c8, _ = frames
+    table, rows = _fuse(dev, frames)
+    assert rows.fidx.shape[0] == 10
     tk, tt = _copy(table), _copy(table)
     launches = tsdf.integrate_blocks.launches
-    tsdf.integrate_blocks(tk, slots, mask, depth[3], c8[3], params, APP)
-    tsdf._integrate_blocks_torch(tt, slots, mask, depth[3], c8[3], params, APP)
+    tsdf.integrate_blocks(tk, rows, depth, c8, APP)
+    tsdf._integrate_rows_torch(tt, rows, depth, c8, APP)
     torch.cuda.synchronize()
     assert tsdf.integrate_blocks.launches == launches + 1
     assert torch.equal(tk.weight[:-1], tt.weight[:-1])
@@ -69,29 +80,47 @@ def test_k1_kernel_matches_twin(dev, frames):
 
 
 def test_k1_deintegrate_restores_weights(dev, frames):
-    cam, depth, c8, poses = frames
-    table, slots, mask = _row(dev, frames)
+    _, depth, c8, _ = frames
+    table, rows = _fuse(dev, frames)
     before = table.weight.clone()
-    for sign in (1.0, -1.0):
-        params = tsdf.row_params(poses[3:4], torch.full((1,), sign, device=dev), cam)[0]
-        tsdf.integrate_blocks(table, slots, mask, depth[3], c8[3], params, APP)
+    tsdf.integrate_blocks(table, rows, depth, c8, APP)
+    assert not torch.equal(table.weight, before)
+    tsdf.integrate_blocks(table, rows.inverse(), depth, c8, APP)
     assert torch.equal(table.weight, before)
 
 
+@pytest.fixture(scope="module")
+def depths(dev, frames):
+    """The synthetic 64x48 frames, and random 70x45 frames with holes: the
+    K2 tiles are 32x16 (30x14 with geometry), so 70x45 leaves ragged tiles."""
+    rng = np.random.default_rng(0)
+    d = rng.uniform(0.5, 3.0, size=(3, 45, 70)).astype(np.float32)
+    d[rng.random(d.shape) < 0.1] = 0.0
+    return {"synthetic": frames[1], "ragged": torch.as_tensor(d, device=dev)}
+
+
+@pytest.mark.parametrize("geometry", [True, False])
 @pytest.mark.parametrize("radius", [3, 0])
-def test_k2_kernel_matches_twin(dev, frames, radius):
-    cam, depth, _, _ = frames
-    got = pp.fused_preprocess(depth, cam, radius=radius)
-    want = pp._preprocess_chain_torch(depth, cam, 2.0, 0.1, radius)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+@pytest.mark.parametrize("which", ["synthetic", "ragged"])
+def test_k2_kernel_matches_twin(dev, frames, depths, which, radius, geometry):
+    cam = frames[0]
+    depth = depths[which]
+    launches = pp.fused_preprocess.launches
+    got = pp.fused_preprocess(depth, cam, radius=radius, geometry=geometry)
+    want = pp._preprocess_chain_torch(depth, cam, 2.0, 0.1, radius, geometry)
+    torch.cuda.synchronize()
+    assert pp.fused_preprocess.launches == launches + 1
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert (g is None and w is None) if not geometry else torch.equal(g, w)
 
 
 def test_wrappers_reject_bad_inputs(dev, frames):
-    cam, depth, c8, poses = frames
-    table, slots, mask = _row(dev, frames)
-    params = tsdf.row_params(poses[3:4], torch.ones(1, device=dev), cam)[0]
+    cam, depth, c8, _ = frames
+    table, rows = _fuse(dev, frames)
     with pytest.raises(ValueError):
-        tsdf.integrate_blocks(table, slots.long(), mask, depth[3], c8[3], params, APP)
+        tsdf.integrate_blocks(table, dataclasses.replace(rows, slots=rows.slots.long()), depth, c8, APP)
     with pytest.raises(ValueError):
         pp.fused_preprocess(depth.double(), cam)
+    with pytest.raises(ValueError):
+        pp.fused_preprocess(depth, cam, radius=4)

@@ -27,6 +27,16 @@ def test_k2_twin_matches_pallas_interpret(seq):
         np.testing.assert_allclose(np.asarray(w), g.numpy(), atol=tol, rtol=0)
 
 
+def test_k2_twin_without_geometry(seq):
+    """geometry=False: the same filtered depth, and no point or normal maps."""
+    depth = seq.depth[:2]
+    want = fused_preprocess_pallas(jnp.asarray(depth), seq.camera, interpret=True)[0]
+    fd, pts, nrm = tpp.fused_preprocess(torch.as_tensor(depth), seq.camera, geometry=False)
+    assert pts is None and nrm is None
+    assert torch.equal(fd, tpp.fused_preprocess(torch.as_tensor(depth), seq.camera)[0])
+    np.testing.assert_allclose(np.asarray(want), fd.numpy(), atol=1e-5, rtol=0)
+
+
 def test_k2_twin_invalid_depth_and_identity_radius(seq):
     d = np.zeros((1, 48, 64), np.float32)
     d[0, 10:20, 10:20] = 2.0

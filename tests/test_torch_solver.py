@@ -91,7 +91,15 @@ def dense_case():
 def test_solve_gn_matches_jax(kind, dense_case):
     cache_np, rel, cc = dense_case
     if kind == "sparse":
-        poses, corrs = _sparse_problem(1, noise=0.01)
+        # Both solvers stop where PCG's starting rz falls below its gate
+        # (tol=1e-10, ``solver/system.py::pcg_solve``), and which float sum
+        # order trips the gate first depends on the host's BLAS. With
+        # noise=0.01 the exact Newton step from those stall points is larger
+        # than the 1e-5 bar, so the test measured the gate rather than the
+        # port. With noise=0.001 that step is about ten times smaller than
+        # the bar on both sides, so any stall point inside the gate lies
+        # inside the bar.
+        poses, corrs = _sparse_problem(1, noise=0.001)
         caches_j = caches_t = None
     else:
         poses = rel
