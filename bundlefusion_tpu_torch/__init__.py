@@ -4,14 +4,18 @@ Same subpackages and module names as the JAX package, so each module's
 counterpart sits at the same path:
 
   * ``geometry`` — SE(3)/SO(3), camera model, Kabsch.
-  * ``io``       — frame wire format, synthetic scene renderer.
+  * ``io``       — frame wire format, synthetic scenes (room, corridor) and
+    sensor noise, ``.sens`` and TUM readers, the replayer, the PLY writer.
   * ``ops``      — frame preprocessing (carries the fused preprocess kernel).
   * ``features`` — batched SIFT, descriptor matching, correspondence filters.
   * ``solver``   — sparse+dense Gauss-Newton bundle adjustment with PCG.
-  * ``bundle``   — chunk/keyframe hierarchy, trajectories, the pipeline.
+  * ``bundle``   — chunk/keyframe hierarchy, trajectories, the pipeline,
+    checkpoints.
   * ``fusion``   — dense-block TSDF integrate/de-integrate (carries the
-    TSDF integrate kernel).
+    TSDF integrate kernel), out-of-core streaming, raycast, marching cubes.
   * ``eval``     — ATE.
+  * ``app``      — the command line (``python -m bundlefusion_tpu_torch.app``);
+    ``visualization`` writes its preview images.
 
 The hand-written CUDA kernels live in ``csrc/`` and are built with nvcc on
 first use (``kernels.py``). Every kernel wrapper runs the kernel for CUDA

@@ -134,13 +134,18 @@ def _append_corrs(graph: GlobalGraph, kmax: int, append_cap: int, cand: residual
     return new, cursor + n_new, overflow
 
 
-def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: BundlingConfig) -> GlobalMatchResult:
+def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: BundlingConfig,
+                 against_all: bool = False) -> GlobalMatchResult:
     """Match keyframe ``k_idx`` against every previous keyframe, filter, and
-    append the surviving correspondences; one batched pass over all K slots."""
+    append the surviving correspondences; one batched pass over all K slots.
+
+    With ``against_all=True`` the candidates are every *valid* keyframe other
+    than ``k_idx``, later ones included: the re-match of a stale keyframe
+    after relocalization (``BundleFusion._revalidate_stale``)."""
     kmax = cfg.max_num_images
     dev = graph.poses.device
     slots = torch.arange(kmax, device=dev)
-    prev_mask = (slots < k_idx) & graph.valid
+    prev_mask = ((slots != k_idx) if against_all else (slots < k_idx)) & graph.valid
     new_keys = graph.keys.index(k_idx)
     new_cache = graph.cache.index(k_idx)
 

@@ -13,9 +13,14 @@ Where the JAX package donates buffers to its fused programs, the port
 updates them in place: the voxel pools, the frame ring, the per-frame update
 records, the keyframe slots and the per-chunk stores (each site says so).
 
-Not ported yet (raise ``NotImplementedError``): out-of-core streaming,
-filtered-depth integration, a distinct integration resolution, periodic and
-end-of-run revalidation after relocalization, and multi-chip execution.
+Three places read device state on the host by design, as in the JAX
+package: the out-of-core streaming check (every ``streaming_check_every``
+chunks until streaming engages, then every chunk), the optional periodic
+revalidation after a relocalization (``revalidate_every_chunks``), and
+``finalize()``.
+
+Not ported yet (raise ``NotImplementedError``): filtered-depth integration,
+a distinct integration resolution, and multi-chip execution.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..fusion import blocks, tsdf
+from ..fusion import blocks, marching_cubes, raycast, streaming, tsdf
 from ..geometry import se3
 from ..geometry.camera import CameraModel
 from ..io import framewire
@@ -266,8 +271,6 @@ class BundleFusion:
             raise NotImplementedError(
                 "an integration resolution different from the input resolution is not ported yet"
             )
-        if bc.revalidate_every_chunks > 0:
-            raise NotImplementedError("revalidate_every_chunks > 0 is not ported yet")
         self.cam = cam
         if cam.width % bc.cache_width or cam.height % bc.cache_height:
             raise ValueError(
@@ -325,6 +328,12 @@ class BundleFusion:
         self._runlog_dev = torch.zeros((self.max_chunks + 1, RUNREC_WIDTH), device=dev)
         self._pending: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._finalized = False
+        self._reloc_seen = 0  # relocalizations already followed by a revalidation
+        # out-of-core streaming: cold blocks live in the host store; the
+        # occupancy check reads device state, so it runs every
+        # streaming_check_every chunks until streaming engages, then every chunk
+        self.block_store = streaming.HostBlockStore(chunk_blocks=ac.streaming_chunk_blocks)
+        self._streaming_on = False
         self.timing = TimingLog(dev)
         self.runlog = RunLog(log_path)
 
@@ -382,11 +391,6 @@ class BundleFusion:
         bc = self.config.bundling
         ac = self.config.app
         c = self.chunk_count
-        if ac.streaming_enabled and ac.streaming_check_every and (c + 1) % ac.streaming_check_every == 0:
-            raise NotImplementedError(
-                f"chunk {c}: the out-of-core streaming check fires here, and streaming "
-                "is not ported yet (set streaming_enabled=False or streaming_check_every=0)"
-            )
         if c >= min(self.max_chunks, bc.max_num_images):
             raise ValueError(f"chunk {c} exceeds the keyframe/chunk capacity")
         first_frame = c * self.S
@@ -431,8 +435,88 @@ class BundleFusion:
                 self.table, freed = blocks.garbage_collect(self.table)
                 self._gc_freed_total = self._gc_freed_total + freed.to(torch.float32)
 
+        # out-of-core streaming: evict far blocks, restore near ones
+        if ac.streaming_enabled and (
+            self._streaming_on or (ac.streaming_check_every and (c + 1) % ac.streaming_check_every == 0)
+        ):
+            self._streaming_step(k_idx, c)
+
+        # optional mid-run revalidation after a relocalization (by default
+        # deferred to finalize(): the check reads a device counter)
+        if bc.revalidate_every_chunks and (c + 1) % bc.revalidate_every_chunks == 0:
+            reloc = int(self.ctrl.reloc_events)
+            if reloc > self._reloc_seen:
+                self._reloc_seen = reloc
+                if self._revalidate_stale():
+                    self._post_revalidate_solve()
+
         self.timing.record("whole_chunk_step", time.perf_counter() - t_chunk)
         self.chunk_count += 1
+
+    def _streaming_step(self, k_idx: int, c: int) -> None:
+        """Stream near host blocks in, then (past the occupancy watermark)
+        far device blocks out, around keyframe ``k_idx``'s position."""
+        ac = self.config.app
+        active_blocks = int(self.table.num_active())
+        cam_pos = self.graph.poses[k_idx, :3, 3].cpu().numpy()
+        n_in = n_out = 0
+        with self.timing.stage("streaming"):
+            if len(self.block_store):
+                self.table, n_in = streaming.stream_in(
+                    self.table, self.block_store, cam_pos, ac, free_capacity=ac.block_capacity - active_blocks
+                )
+                active_blocks += n_in
+            # stream-out engages only past the occupancy watermark, so small
+            # scenes never pay host traffic
+            if active_blocks > ac.streaming_watermark * ac.block_capacity:
+                self.table, n_out = streaming.stream_out(self.table, self.block_store, cam_pos, ac)
+        if n_in or n_out:
+            self._streaming_on = True
+            self.runlog.log(chunk=c, stream_in=n_in, stream_out=n_out, host_blocks=len(self.block_store))
+
+    def _revalidate_stale(self, max_per_event: int = 8, max_rounds: int = 8) -> int:
+        """Re-match stale invalidated keyframes against the whole valid graph
+        and revalidate the ones that link (the relocalization aftermath).
+        Returns the number revalidated. Only keyframes whose chunk solved
+        locally are candidates. Work per call is bounded at max_rounds x
+        max_per_event matches (each reads one validity flag back); longer
+        stale chains unwind across calls, since finalize() and the periodic
+        hook both re-enter here."""
+        bc = self.config.bundling
+        chunk_valid_np = self._chunk_valid_dev[: self.num_keyframes].cpu().numpy()
+        n_re = 0
+        # a chunk that links only through a just-revalidated neighbour
+        # recovers in a later round (chains unwind one hop per round)
+        for _ in range(max_rounds):
+            valid_np = self.graph.valid[: self.num_keyframes].cpu().numpy()
+            stale = np.flatnonzero(~valid_np & chunk_valid_np)
+            if stale.size == 0:
+                break
+            # candidates nearest a valid keyframe first: stale chains unwind
+            # from their anchored ends
+            valid_idx = np.flatnonzero(valid_np)
+            if valid_idx.size:
+                prox = np.min(np.abs(stale[:, None] - valid_idx[None, :]), axis=1)
+                stale = stale[np.argsort(prox, kind="stable")]
+            progressed = 0
+            for k in stale[:max_per_event].tolist():
+                mres = global_graph.global_match(self.graph, k, self.cache_cam, bc, against_all=True)
+                self.graph = mres.graph
+                if bool(mres.any_valid):
+                    j = int(mres.best_prev)
+                    # in place, as the graph step writes keyframe slots
+                    self.graph.poses[k] = self.graph.poses[j] @ se3.mat_inverse(mres.transforms[j])
+                    self.graph.valid[k] = True
+                    progressed += 1
+            n_re += progressed
+            if not progressed:
+                break
+        return n_re
+
+    def _post_revalidate_solve(self) -> None:
+        if self.num_keyframes > 1:
+            self.graph, _, _ = global_graph.global_solve(self.graph, self.cache_cam, self.config.bundling)
+        self._publish_trajectory()
 
     def _publish_trajectory(self) -> None:
         if self.chunk_count == 0 and self.num_keyframes == 0:
@@ -505,19 +589,28 @@ class BundleFusion:
                 self._next_fid += 1
                 self._pending.append(last)
             self._maybe_process_chunk()
+        self.sync()
+
+    def sync(self) -> None:
+        """The JAX package drains its ingest threads here. The port has none
+        (chunks are enqueued on the caller's thread), so there is nothing to
+        wait for; the call sites are kept so callers are the same."""
 
     def finalize(self) -> None:
-        """End-of-sequence recovery (idempotent): drain the re-integration
-        backlog including ring-spilled frames, then emit the runlog. The first
-        device reads of a run happen here."""
+        """End-of-sequence recovery (idempotent): revalidate stale keyframes
+        if a relocalization happened since the last revalidation, re-solve,
+        then drain the re-integration backlog including ring-spilled frames,
+        and emit the runlog. The first device reads of a default run happen
+        here."""
         if self._finalized:
             return
+        self.sync()
         self._finalized = True
-        if self.num_keyframes > 1 and int(self.ctrl.reloc_events) > 0:
-            raise NotImplementedError(
-                "a relocalization happened: revalidating stale keyframes (_revalidate_stale) "
-                "is not ported yet"
-            )
+        if self.num_keyframes > 1 and int(self.ctrl.reloc_events) > self._reloc_seen:
+            # each call is bounded; loop until no progress so long stale
+            # chains still unwind
+            while self._revalidate_stale():
+                self._post_revalidate_solve()
         self._service_reintegration()
         self._emit_runlog()
 
@@ -542,15 +635,60 @@ class BundleFusion:
 
     @property
     def tracking_lost(self) -> bool:
+        self.sync()
         return bool(self.ctrl.tracking_lost)
 
     @property
     def lost_chunks(self) -> int:
+        self.sync()
         return int(self.ctrl.lost_chunks)
 
     def current_poses(self) -> tuple[np.ndarray, np.ndarray]:
+        self.sync()
         n = self.num_frames
         return self.traj.opt_pose[:n].cpu().numpy(), self.traj.opt_valid[:n].cpu().numpy()
+
+    def extract_mesh(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Mesh the whole scene: the device table, then the host store's cold
+        blocks paged through scratch tables batch by batch (the store is not
+        disturbed). Blocks meshed in different batches can leave hairline
+        cracks at shared faces, as the reference's chunked meshing does.
+        Returns (vertices [V, 3], colours [V, 3], faces [F, 3])."""
+        self.sync()
+        ac = self.config.app
+        parts = [marching_cubes.extract_mesh(self.table, ac)]
+        batch = 2048
+        for keys, sdf, wgt, col in self.block_store.snapshot_batches(batch):
+            t = blocks.make_table(batch, self.device)
+            keys_t = torch.as_tensor(keys, device=self.device)
+            t, _ = blocks.allocate(t, keys_t)
+            slots, _ = blocks.lookup(t, keys_t)
+            s = slots.long()
+            t.sdf[s] = torch.as_tensor(sdf, device=self.device)
+            t.weight[s] = torch.as_tensor(wgt, device=self.device)
+            t.color[s] = torch.as_tensor(col, device=self.device)
+            parts.append(marching_cubes.extract_mesh(t, ac))
+        if len(parts) == 1:
+            return parts[0]
+        offs = np.cumsum([0] + [len(v) for v, _, _ in parts[:-1]])
+        return (
+            np.concatenate([v for v, _, _ in parts]),
+            np.concatenate([c for _, c, _ in parts]),
+            np.concatenate([f + o for (_, _, f), o in zip(parts, offs)]).astype(np.int32),
+        )
+
+    def render_preview(self, pose: np.ndarray, width: int = 0, height: int = 0) -> np.ndarray:
+        """Shaded raycast [H, W, 3] of the TSDF from ``pose`` (camera-to-world)
+        at the configured raycast resolution, or ``width`` x ``height``.
+        Sets ``splat_truncated``: tile coverage the bounded splat window
+        dropped (nonzero means near-camera blocks may be missing)."""
+        self.sync()
+        ac = self.config.app
+        cam = self.cam.scaled(width, height) if width else self.cam.scaled(ac.raycast_width, ac.raycast_height)
+        pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
+        res = raycast.raycast(self.table, pose_t, cam, ac)
+        self.splat_truncated = int(res.splat_truncated)
+        return raycast.shade_preview(res).cpu().numpy()
 
     def outputs(self) -> PipelineOutputs:
         self.finalize()

@@ -69,8 +69,7 @@ class AppConfig:
     streaming_watermark: float = 0.5
     # the occupancy check reads device state (a host round-trip), so it runs
     # every N chunks until streaming first engages, then every chunk; 0
-    # disables the periodic check entirely (streaming is not ported yet: the
-    # port's pipeline raises at the first chunk where the check would fire)
+    # disables the periodic check entirely
     streaming_check_every: int = 16
 
     # --- raycast / preview ---

@@ -219,3 +219,63 @@ def garbage_collect(table: BlockTable) -> tuple[BlockTable, torch.Tensor]:
         ),
         freed,
     )
+
+
+def free_slots_by_mask(table: BlockTable, dead_slot_mask: torch.Tensor) -> BlockTable:
+    """Free an explicit set of data slots (the streaming layer's eviction).
+    Their weights are zeroed IN PLACE so occupancy scans cannot see stale
+    data; the scratch row is spared."""
+    key_of_slot = torch.where(dead_slot_mask, INVALID_KEY, table.key_of_slot)
+    keys, order = torch.sort(key_of_slot, stable=True)
+    table.weight[: table.capacity].masked_fill_(dead_slot_mask[:, None], 0.0)
+    return dataclasses.replace(table, keys=keys, slot_of=order.to(torch.int32), key_of_slot=key_of_slot)
+
+
+def corner_offsets(device) -> torch.Tensor:
+    """[8, 3] int32 (dx, dy, dz) offsets of a cell's corners; corner
+    a = dz*4 + dy*2 + dx, the JAX package's loop order. Built on the device
+    (a tensor made from Python data on a card would be a host transfer)."""
+    a = torch.arange(8, dtype=torch.int32, device=device)
+    return torch.stack([a & 1, (a >> 1) & 1, (a >> 2) & 1], dim=-1)
+
+
+def sample_trilinear(
+    table: BlockTable, p: torch.Tensor, voxel_size: float, with_color: bool = True
+) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """Trilinear TSDF/colour sample at world points [..., 3].
+
+    Returns (sdf [...], colour [..., 3] or None, valid [...]). The 8 corners
+    are looked up as one batch of keys, so a block-boundary corner reads the
+    neighbouring block; a sample is valid only where all 8 corners are
+    observed. ``with_color=False`` skips the colour gathers (the raycast's
+    march needs the sdf only)."""
+    q = p / voxel_size - 0.5  # voxel-centre grid coords
+    q0 = torch.floor(q)
+    f = q - q0
+    offs = corner_offsets(p.device)
+    vox = q0.to(torch.int32)[..., None, :] + offs  # [..., 8, 3]
+    bc = torch.div(vox, BLOCK, rounding_mode="floor")
+    local = vox - bc * BLOCK
+    slot, found = lookup(table, pack_key(bc))
+    v = local[..., 2] * 64 + local[..., 1] * 8 + local[..., 0]
+    slot, v = slot.long(), v.long()
+    w = table.weight[slot, v]
+    ok = found & (w > 0.0)
+    offs_f = offs.to(p.dtype)
+    fx, fy, fz = f[..., None, 0], f[..., None, 1], f[..., None, 2]
+    tw = (
+        torch.where(offs_f[:, 0] == 1, fx, 1 - fx)
+        * torch.where(offs_f[:, 1] == 1, fy, 1 - fy)
+        * torch.where(offs_f[:, 2] == 1, fz, 1 - fz)
+    )  # [..., 8]
+    tw_ok = torch.where(ok, tw, 0.0)
+    wsum = torch.sum(tw_ok, dim=-1)
+    valid = torch.all(ok, dim=-1) & (wsum > 1e-6)
+    den = torch.clamp(wsum, min=1e-9)
+    sdf_acc = torch.sum(torch.where(ok, tw * table.sdf[slot, v], 0.0), dim=-1)
+    sdf = torch.where(valid, sdf_acc / den, torch.inf)
+    if not with_color:
+        return sdf, None, valid
+    c = torch.stack([table.color[slot, ch * NVOX + v] for ch in range(3)], dim=-1)
+    col = torch.where(ok[..., None], tw[..., None] * c / torch.clamp(w, min=1e-9)[..., None], 0.0)
+    return sdf, torch.sum(col, dim=-2) / den[..., None], valid

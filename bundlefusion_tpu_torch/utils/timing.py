@@ -18,7 +18,7 @@ import torch
 class TimingLog:
     """Accumulates time per named stage: count, total, max."""
 
-    def __init__(self, device: torch.device | str = "cpu"):
+    def __init__(self, device: torch.device | str = "cuda"):
         self.cuda = torch.device(device).type == "cuda"
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)

@@ -26,6 +26,28 @@ exits non-zero; there is no CPU fallback):
   5. syncs    — host syncs in the steady state, counted under
                 ``torch.cuda.set_sync_debug_mode("warn")``: there must be
                 none (a deliberate sync first shows that the count works).
+  6. stream   — the flagship configuration with the default streaming
+                schedule (a check every 16 chunks until streaming engages)
+                on a 241-frame corridor walk rendered on the card, with the
+                block pool cut to 4,480 blocks so that the walk outgrows it
+                and the streaming radius to 2.5 m (see STREAM below):
+                fps, stream-in/out counts and seconds, the host syncs and the
+                chunks they occur at (streaming checks only), tracking, ATE,
+                and the streaming-aware mesh (extract_mesh seconds and
+                triangles; it must span the walked corridor).
+  7. reloc    — the out-and-back orbit with the depth blacked out over four
+                frames, at 640x480 on the flagship configuration: a
+                relocalization, finalize()'s revalidation, valid frames after
+                the cut and their ATE; then the same scenario at 128x96 on
+                the CPU (twins) and on the card (kernels) agreeing.
+  8. app      — ``bundlefusion_tpu_torch.app.main`` on the card through the
+                --synthetic and --sens routes at 640x480 with the flagship
+                configuration: summary, mesh, trajectory, previews and
+                checkpoint, ATE <= 0.5 cm on both; render_preview at 320x240.
+
+Phases 6-8 set the kernels' launch counts to 0 before their run and read
+them after it: each of their passes must launch both kernels. Small outputs
+(summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +57,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,6 +70,23 @@ import numpy as np
 
 FLAGSHIP_FRAMES = 66
 SMALL = dict(width=128, height=96, frames=13)
+FULL = (640, 480)  # the flagship frame size of phases 6-8
+# phase 6: a corridor walk long enough that the default streaming check
+# (every 16 chunks) fires on its own (chunk 15 starts at frame 150), moving
+# 0.0125 m per frame (the JAX package's streaming test moves 0.031 m). The
+# walk stops at x = 3 m: further on, the second room's sphere passes within
+# 0.3 m of the camera, and faster walks lose the keyframe chain at the first
+# divider and never relocalize (the JAX package's known corridor fault,
+# ROADMAP Queue 3). The view is at most ~2.3 m deep, so nothing is farther
+# than the default 4 m radius before the walk is ~3 m long: the radius is
+# cut to 2.5 m (the JAX package's streaming tests use 1.8-2.2 m). The pool
+# is cut to 4,480 blocks: the walk fills ~4,100 by the first check and more
+# than the pool by its end, so nothing overflows before streaming can
+# engage, and the scene outgrows the pool after. The triangle cap is raised
+# so that the whole corridor (~1.1 M triangles) is meshed.
+STREAM = dict(frames=241, x_span=3.0, streaming_radius=2.5, block_capacity=4480, mc_max_triangles=1 << 23)
+OUT_DIR = "chiprun_out"
+KEEP_BYTES = 48 << 20  # larger app outputs are checked, then deleted
 
 # The least time the card could take (the larger of bytes over the memory
 # rate and operations over their unit's rate). Published peaks of one H100
@@ -286,9 +327,7 @@ def run_slice(torch, T, dev, kernels_out):
     """Phase 4: the flagship slice, then the small CPU-vs-card and
     determinism checks. Returns the flagship sequence and configuration."""
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
-    from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
-    from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
 
     cfg = flagship_config(T)
     seq = generate_sequence(FLAGSHIP_FRAMES, 640, 480, radius=0.5, device=dev)
@@ -296,13 +335,12 @@ def run_slice(torch, T, dev, kernels_out):
     del bf
     phase("slice", f"warm pass {dt_warm:.2f} s")
 
-    integrate_blocks.launches = 0
-    fused_preprocess.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     bf, dt = run_pass(T, seq, cfg, dev)
     out = bf.outputs()
     torch.cuda.synchronize()
-    launches = {"tsdf_integrate": integrate_blocks.launches, "preprocess": fused_preprocess.launches}
+    launches = read_launches()
     for k in kernels_out:
         k["launches"] = launches[k["name"]]
     n = min(len(out.poses), len(seq.poses))
@@ -354,19 +392,44 @@ def run_slice(torch, T, dev, kernels_out):
     return seq, cfg
 
 
-def sync_sites(torch, fn) -> list[str]:
+def reset_launches() -> None:
+    from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
+    from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
+
+    integrate_blocks.launches = 0
+    fused_preprocess.launches = 0
+
+
+def read_launches() -> dict[str, int]:
+    from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
+    from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
+
+    return {"tsdf_integrate": integrate_blocks.launches, "preprocess": fused_preprocess.launches}
+
+
+def record_launches(kernels_out, path: str, launches: dict[str, int]) -> None:
+    """Attach a path's launch counts to the kernels' entries; every kernel
+    of the path must have launched."""
+    for k in kernels_out:
+        k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
+    if not all(launches.values()):
+        raise AssertionError(f"{path}: a kernel of the path was never launched: {launches}")
+
+
+def sync_sites(torch, fn, where=None) -> list[str]:
     """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and return
     one line per synchronizing CUDA operation it called: the innermost frame
-    of the port's code, then the innermost frame overall. Only PyTorch's
-    per-operation warning counts; turning the mode on prints a notice of its
-    own, which is not a sync."""
+    of the port's code, then the innermost frame overall, prefixed by
+    ``where()`` when given. Only PyTorch's per-operation warning counts;
+    turning the mode on prints a notice of its own, which is not a sync."""
     sites: list[str] = []
 
     def on_warning(message, category, filename, lineno, file=None, line=None):
         if "called a synchronizing CUDA operation" in str(message):
             stack = traceback.extract_stack()[:-1]
             ours = [f for f in stack if "bundlefusion_tpu_torch" in f.filename] or stack
-            sites.append(" <- ".join(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno} ({f.name})" for f in (ours[-1], stack[-1])))
+            site = " <- ".join(f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno} ({f.name})" for f in (ours[-1], stack[-1]))
+            sites.append(site if where is None else f"{where()}|{site}")
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -403,6 +466,261 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
         raise AssertionError(f"host syncs in the steady state: {counts}")
 
 
+def keep_or_drop(path: str) -> str:
+    """Keep a checked output under the git-ignored output directory when it
+    is small; larger files are deleted (the output directory is size-capped)."""
+    size = os.path.getsize(path)
+    if size <= KEEP_BYTES:
+        return f"{path} ({size / 2**20:.1f} MiB, kept)"
+    os.remove(path)
+    return f"{path} ({size / 2**20:.1f} MiB, checked and deleted)"
+
+
+def read_ply_header(path: str) -> tuple[int, int]:
+    """(vertex count, face count) of a binary PLY, checked against its size."""
+    with open(path, "rb") as f:
+        head = b""
+        while not head.endswith(b"end_header\n"):
+            head += f.readline()
+        body = os.fstat(f.fileno()).st_size - len(head)
+    lines = head.decode("ascii").splitlines()
+    nv = int(next(x for x in lines if x.startswith("element vertex")).split()[-1])
+    nf = int(next(x for x in lines if x.startswith("element face")).split()[-1])
+    if body != nv * 15 + nf * 13:
+        raise AssertionError(f"{path}: body of {body} bytes does not hold {nv} vertices and {nf} faces")
+    return nv, nf
+
+
+def run_stream(torch, T, dev, kernels_out) -> None:
+    """Phase 6: out-of-core streaming with the default check schedule."""
+    from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+    from bundlefusion_tpu_torch.fusion.blocks import INVALID_KEY
+    from bundlefusion_tpu_torch.io import ply
+    from bundlefusion_tpu_torch.io.synthetic import generate_corridor_sequence
+
+    base = flagship_config(T)
+    cfg = dataclasses.replace(base, app=dataclasses.replace(base.app, **{
+        k: STREAM[k] for k in ("streaming_radius", "block_capacity", "mc_max_triangles")}))
+    ac = cfg.app
+    n = STREAM["frames"]
+    t0 = time.perf_counter()
+    seq = generate_corridor_sequence(n, *FULL, x_span=STREAM["x_span"], device=dev)
+    phase("stream", f"corridor {n} frames {FULL[0]}x{FULL[1]} rendered in {time.perf_counter() - t0:.2f} s; streaming radius "
+          f"{ac.streaming_radius} m, watermark {ac.streaming_watermark}, check every {ac.streaming_check_every} "
+          f"chunks, block_capacity {ac.block_capacity}")
+    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+
+    def walk():
+        for i in range(n):
+            bf.push_frame(seq.depth[i], seq.color[i])
+        bf.flush()
+
+    t0 = time.perf_counter()
+    sites = sync_sites(torch, walk, where=lambda: bf.chunk_count)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    record_launches(kernels_out, "stream", launches)
+    out = bf.outputs()
+    recs = [r for r in bf.runlog.records if "stream_out" in r]
+    chunks = [r for r in bf.runlog.records if "chunk_valid" in r]
+    st = bf.timing.summary().get("streaming", {"count": 0, "total_s": 0.0, "max_ms": 0.0})
+    n_in, n_out = sum(r["stream_in"] for r in recs), sum(r["stream_out"] for r in recs)
+    device_blocks, host_blocks = int(bf.table.num_active()), len(bf.block_store)
+    # distinct blocks of the scene: the device's and the host store's keys
+    # (a block re-allocated while cold is in both until a stream-in merges it)
+    keys = [bf.table.keys[bf.table.keys != INVALID_KEY].cpu().numpy()]
+    keys += [k for k, _, _, _ in bf.block_store.snapshot_batches(4096)]
+    distinct = len(np.unique(np.concatenate(keys)))
+    ate = ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
+    sync_chunks = sorted({int(x.split("|", 1)[0]) for x in sites})
+    by_site = {}
+    for x in sites:
+        by_site[x.split("|", 1)[1]] = by_site.get(x.split("|", 1)[1], 0) + 1
+    phase("stream", f"{n / dt:.3f} fps ({dt:.3f} s push_frame -> flush, {len(chunks)} chunks, under sync debug "
+          f"mode); kernel launches {launches}; streaming steps {st['count']} ({st['total_s']:.3f} s in all, "
+          f"max {st['max_ms']:.1f} ms), stream-in {n_in} blocks, stream-out {n_out} blocks, engaged at chunk "
+          f"{recs[0]['chunk'] if recs else None}; device {device_blocks} + host {host_blocks} blocks, {distinct} "
+          f"distinct, against a pool of {ac.block_capacity}; active blocks by chunk "
+          f"{[r['active_blocks'] for r in chunks]}; alloc_overflow {sum(r['alloc_overflow'] for r in chunks)}; "
+          f"tracking_lost_chunks {out.tracking_lost_chunks}; ATE {ate * 100:.4f} cm")
+    phase("stream", "stage timing (CUDA events; streaming includes its host reads):\n" + bf.timing.report())
+    phase("stream", f"{len(sites)} host syncs at chunks {sync_chunks}; by site {by_site}")
+    phase("stream", "runlog streaming steps " + json.dumps(recs))
+    first_check = ac.streaming_check_every - 1
+    if not recs or recs[0]["chunk"] != first_check:
+        raise AssertionError(f"streaming did not engage at the first check (chunk {first_check}): {recs[:2]}")
+    if not sites or min(sync_chunks) < first_check:
+        raise AssertionError(f"host syncs before the first streaming check: chunks {sync_chunks}")
+    if host_blocks == 0 or device_blocks + host_blocks <= ac.block_capacity or distinct <= ac.block_capacity:
+        raise AssertionError(f"the walk did not outgrow the pool: device {device_blocks}, host {host_blocks}, "
+                             f"distinct {distinct}")
+    if any(r["alloc_overflow"] for r in chunks):
+        raise AssertionError("the pool overflowed")
+    if out.tracking_lost_chunks != 0 or not ate < 0.02:
+        raise AssertionError(f"corridor tracking: lost chunks {out.tracking_lost_chunks}, ATE {ate * 100:.3f} cm")
+
+    t0 = time.perf_counter()
+    verts, cols, faces = bf.extract_mesh()
+    t_mesh = time.perf_counter() - t0
+    x_lo, x_hi = float(verts[:, 0].min()), float(verts[:, 0].max())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "stream_mesh.ply")
+    ply.write_ply(path, verts, cols, faces)
+    nv, nf = read_ply_header(path)
+    phase("stream", f"extract_mesh {t_mesh:.3f} s, {len(faces)} triangles (device table and {host_blocks} host "
+          f"blocks), x from {x_lo:.3f} to {x_hi:.3f} m; {path} ({os.path.getsize(path) / 2**20:.1f} MiB)")
+    if nf != len(faces) or not (x_lo < 0.3 and x_hi > STREAM["x_span"] + 1.0):
+        raise AssertionError(f"the mesh does not span the walked corridor: x {x_lo:.3f}..{x_hi:.3f}, {nf} faces")
+
+
+def blackout_sequence(w: int, h: int, dev, num_frames: int = 41):
+    """The JAX package's out-and-back orbit (``tests/test_loopclosure.py``)
+    rendered at w x h, with the depth blacked out at frames 20..23."""
+    from bundlefusion_tpu_torch.geometry.camera import CameraModel
+    from bundlefusion_tpu_torch.io.synthetic import orbit_poses, render_sequence
+
+    fx = 0.9 * w
+    cam = CameraModel.create(fx, fx, (w - 1) / 2, (h - 1) / 2, w, h)
+    base = orbit_poses(num_frames, radius=0.45, seed=3)
+    half = num_frames // 2
+    seq = render_sequence(np.concatenate([base[: half + 1], base[half - 1 :: -1]])[:num_frames], cam, device=dev)
+    depth = seq.depth.copy()
+    depth[20:24] = 0.0
+    return seq._replace(depth=depth)
+
+
+def run_reloc(torch, T, dev, kernels_out) -> None:
+    """Phase 7: relocalization after a depth blackout, and its aftermath."""
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+
+    seq = blackout_sequence(*FULL, dev)
+    cfg = flagship_config(T)
+    reset_launches()
+    bf, dt = run_pass(T, seq, cfg, dev)
+    t0 = time.perf_counter()
+    out = bf.outputs()  # finalize(): revalidation, then the re-integration service
+    torch.cuda.synchronize()
+    t_fin = time.perf_counter() - t0
+    launches = read_launches()
+    record_launches(kernels_out, "reloc", launches)
+    reloc = int(bf.ctrl.reloc_events)
+    valid = out.valid
+    cut = 30  # the first chunk after the blackout starts at frame 30 (submap 10)
+    sel = valid.copy()
+    sel[:cut] = False
+    ate_tail = ate_rmse(out.poses, seq.poses[: len(out.poses)], valid=sel)
+    phase("reloc", f"{FULL[0]}x{FULL[1]}, {len(seq.poses)} frames, depth blacked out at 20..23: {dt:.3f} s push_frame -> flush, "
+          f"finalize {t_fin:.3f} s; relocalizations {reloc}, keyframes valid "
+          f"{bf.graph.valid[: bf.num_keyframes].cpu().numpy().astype(int).tolist()}, frames valid "
+          f"{''.join('1' if v else '0' for v in valid)}; post-cut ATE {ate_tail * 100:.4f} cm; launches {launches}")
+    if reloc < 1 or not valid[cut:].all() or not ate_tail < 0.04:
+        raise AssertionError(f"relocalization: events {reloc}, valid after the cut {valid[cut:].tolist()}, "
+                             f"post-cut ATE {ate_tail * 100:.3f} cm")
+    del bf
+
+    sseq = blackout_sequence(SMALL["width"], SMALL["height"], dev)
+    scfg = small_config(T)
+    runs = {}
+    for d in ("cpu", dev):
+        b, _ = run_pass(T, sseq, scfg, d)
+        runs[str(d)] = (b, b.outputs())
+    (cb, co), (gb, go) = runs["cpu"], runs[str(dev)]
+    err = float(np.abs(co.poses - go.poses).max())
+    phase("reloc", f"128x96 on the CPU and on the card: relocalizations {int(cb.ctrl.reloc_events)} / "
+          f"{int(gb.ctrl.reloc_events)}, valid masks equal {np.array_equal(co.valid, go.valid)}, "
+          f"max |pose cpu - card| {err:.3g}")
+    if not np.array_equal(co.valid, go.valid) or err > 1e-4 or int(gb.ctrl.reloc_events) < 1:
+        raise AssertionError(f"128x96 relocalization: CPU and card differ (pose error {err})")
+
+
+def run_app(torch, T, dev, kernels_out) -> None:
+    """Phase 8: the app's --synthetic and --sens routes on the card."""
+    from bundlefusion_tpu_torch import app
+    from bundlefusion_tpu_torch.bundle.checkpoint import load_checkpoint
+    from bundlefusion_tpu_torch.io import sens
+    from bundlefusion_tpu_torch.io.synthetic import generate_sequence
+
+    cfg = flagship_config(T)
+    root = os.path.join(OUT_DIR, "app")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    app_json, bundling_json = os.path.join(root, "app.json"), os.path.join(root, "bundling.json")
+    with open(app_json, "w") as f:
+        json.dump(dataclasses.asdict(cfg.app), f)
+    with open(bundling_json, "w") as f:
+        json.dump(dataclasses.asdict(cfg.bundling), f)
+    common = ["--app-config", app_json, "--bundling-config", bundling_json, "--device", str(dev)]
+    n = FLAGSHIP_FRAMES
+    routes = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    synth = os.path.join(root, "synthetic")
+    app.main(["--synthetic", str(n), "--width", str(FULL[0]), "--height", str(FULL[1]), "--preview-every", "33",
+              "--checkpoint-every", "3", "--out", synth, *common])
+    routes["synthetic"] = (synth, time.perf_counter() - t0)
+    seq = generate_sequence(n, *FULL, device=dev)  # the frames the --synthetic route rendered
+    sens_path = os.path.join(root, "in.sens")
+    sens.write_sens(sens_path, seq.depth, seq.color, seq.poses, seq.camera)
+    t0 = time.perf_counter()
+    sens_out = os.path.join(root, "sens")
+    app.main(["--sens", sens_path, "--out", sens_out, *common])
+    routes["sens"] = (sens_out, time.perf_counter() - t0)
+    os.remove(sens_path)
+    launches = read_launches()
+    record_launches(kernels_out, "app", launches)
+
+    problems = []  # raised together once every output has been checked and printed
+    for name, (d, secs) in routes.items():
+        with open(os.path.join(d, "summary.json")) as f:
+            summary = json.load(f)
+        nv, nf = read_ply_header(os.path.join(d, "mesh.ply"))
+        traj = np.loadtxt(os.path.join(d, "trajectory.txt"), ndmin=2)
+        previews = sorted(x for x in os.listdir(d) if x.startswith("preview_"))
+        phase("app", f"--{name}: {secs:.2f} s; frames {summary['frames']}, keyframes {summary['keyframes']}, "
+              f"lost chunks {summary['tracking_lost_chunks']}, ATE {summary['ate_rmse_m'] * 100:.4f} cm, active "
+              f"blocks {summary['active_blocks']}, triangles {summary['mesh_triangles']}; trajectory.txt "
+              f"{len(traj)} rows; previews {previews}; {keep_or_drop(os.path.join(d, 'mesh.ply'))}")
+        if not (summary["frames"] >= n and summary["ate_rmse_m"] <= 0.005 and nf == summary["mesh_triangles"] > 0
+                and len(traj) == summary["frames"] and np.isfinite(traj).all()):
+            problems.append(f"--{name}: bad outputs (frames, ATE, mesh or trajectory)")
+    if [x.split(".")[0] for x in sorted(os.listdir(synth)) if x.startswith("preview_")] != [
+            f"preview_{f:05d}" for f in range(33, n + 1, 33)]:
+        problems.append("--synthetic: previews missing")
+
+    # the app checkpoints after a replayer batch (8 frames) that leaves a
+    # multiple of 3 chunks done; chunk c is done once 1 + S * (c + 1) frames are in
+    s = cfg.bundling.submap_size
+    done = [(min(f, n) - 1) // s for f in range(8, n + 8, 8)]
+    chunks = max(c for c in done if c and c % 3 == 0)
+    ck = os.path.join(synth, "checkpoint.pkl")
+    bf = load_checkpoint(ck, device=dev)
+    phase("app", f"checkpoint: {bf.chunk_count} chunks, {bf.num_frames} frames, {int(bf.table.num_active())} "
+          f"blocks restored; {keep_or_drop(ck)}")
+    if bf.chunk_count != chunks or bf.num_frames != s * chunks + 1:
+        problems.append(f"checkpoint holds {bf.chunk_count} chunks / {bf.num_frames} frames, not {chunks}")
+    for i in range(bf._next_fid, n):  # the restored pipeline keeps consuming frames
+        bf.push_frame(seq.depth[i], seq.color[i])
+    bf.flush()
+    out = bf.outputs()
+    pose = out.poses[-1]
+    bf.render_preview(pose)  # warm
+    ms = cuda_ms(torch, lambda: bf.render_preview(pose), n=5, batch=1)
+    img = bf.render_preview(pose)
+    phase("app", f"restored pipeline finished {out.poses.shape[0]} frames; render_preview "
+          f"{bf.config.app.raycast_width}x{bf.config.app.raycast_height}: {ms:.2f} ms (median of 5, host reads "
+          f"included), "
+          f"splat_truncated {bf.splat_truncated}, {(img != 0.1).any(axis=-1).mean():.3f} of pixels hit")
+    ac = bf.config.app
+    if img.shape != (ac.raycast_height, ac.raycast_width, 3) or not np.isfinite(img).all():
+        problems.append(f"render_preview gave {img.shape}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 def main() -> int:
     import torch
 
@@ -421,9 +739,20 @@ def main() -> int:
     kernels.library()
     phase("build", f"nvcc build {secs:.2f} s -> {kernels.LIB_PATH}")
 
-    kern = check_kernels(torch, T, dev)
-    seq, cfg = run_slice(torch, T, dev, kern)
-    count_syncs(torch, T, seq, cfg, dev)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase(name, f"phase {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kern = timed("kernels", check_kernels, torch, T, dev)
+    seq, cfg = timed("slice", run_slice, torch, T, dev, kern)
+    timed("syncs", count_syncs, torch, T, seq, cfg, dev)
+    del seq
+    torch.cuda.empty_cache()
+    timed("stream", run_stream, torch, T, dev, kern)
+    timed("reloc", run_reloc, torch, T, dev, kern)
+    timed("app", run_app, torch, T, dev, kern)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

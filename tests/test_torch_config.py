@@ -10,7 +10,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 import bundlefusion_tpu.config as jcfg
 import bundlefusion_tpu_torch.config as tcfg
@@ -41,7 +40,12 @@ def test_port_imports_no_jax():
     code = (
         "import sys, bundlefusion_tpu_torch, bundlefusion_tpu_torch.bundle.pipeline, "
         "bundlefusion_tpu_torch.interop, bundlefusion_tpu_torch.io.synthetic, "
-        "bundlefusion_tpu_torch.eval.ate\n"
+        "bundlefusion_tpu_torch.eval.ate, bundlefusion_tpu_torch.app, "
+        "bundlefusion_tpu_torch.bundle.checkpoint, bundlefusion_tpu_torch.fusion.streaming, "
+        "bundlefusion_tpu_torch.fusion.marching_cubes, bundlefusion_tpu_torch.fusion.raycast, "
+        "bundlefusion_tpu_torch.io.ply, bundlefusion_tpu_torch.io.sens, bundlefusion_tpu_torch.io.tum, "
+        "bundlefusion_tpu_torch.io.sensor, bundlefusion_tpu_torch.io.replayer, "
+        "bundlefusion_tpu_torch.visualization\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bundlefusion_tpu.'))"
         " or m == 'bundlefusion_tpu']\n"
         "assert not bad, bad\n"
@@ -62,7 +66,6 @@ def _cam(w=64, h=48):
     [
         (dict(integrate_filtered_depth=True), {}),
         (dict(integration_width=32, integration_height=24), {}),
-        ({}, dict(revalidate_every_chunks=2)),
     ],
 )
 def test_unported_settings_are_rejected(app_change, bundling_change):
@@ -76,16 +79,26 @@ def test_unported_settings_are_rejected(app_change, bundling_change):
         BundleFusion(_cam(), c, device="cpu")
 
 
-def test_streaming_check_raises_where_it_would_fire():
+def test_streaming_check_runs_where_it_fires():
+    """The streaming step runs at every streaming_check_every-th chunk until
+    streaming engages, then at every chunk (with the default settings the
+    first check is chunk 15)."""
     c = tcfg.tiny_test_config()
-    c = dataclasses.replace(c, app=dataclasses.replace(c.app, streaming_check_every=1))
+    c = dataclasses.replace(c, app=dataclasses.replace(c.app, streaming_check_every=3))
     bf = BundleFusion(_cam(), c, device="cpu")
+    calls = []
+
+    def step(k_idx, chunk):
+        calls.append(chunk)
+        bf._streaming_on = chunk >= 5  # engages at the second check
+
+    bf._streaming_step = step
     frame = (np.full((48, 64), 2.0, np.float32), np.full((48, 64, 3), 0.5, np.float32))
-    with pytest.raises(NotImplementedError, match="streaming"):
-        for _ in range(c.bundling.chunk_size):
-            bf.push_frame(*frame)
-    assert bf.chunk_count == 0
-    assert torch.all(bf.table.weight == 0)
+    for _ in range(1 + 8 * c.bundling.submap_size):
+        bf.push_frame(*frame)
+    assert bf.chunk_count == 8
+    assert calls == [2, 5, 6, 7]
+    assert tcfg.AppConfig().streaming_check_every == 16
 
 
 def test_mesh_is_rejected():
