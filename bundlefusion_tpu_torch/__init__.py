@@ -4,8 +4,10 @@ Same subpackages and module names as the JAX package, so each module's
 counterpart sits at the same path:
 
   * ``geometry`` — SE(3)/SO(3), camera model, Kabsch.
-  * ``io``       — frame wire format, synthetic scenes (room, corridor) and
-    sensor noise, ``.sens`` and TUM readers, the replayer, the PLY writer.
+  * ``io``       — frame wire formats (v1 RGB and v2 luma, the wire
+    bilateral), synthetic scenes (room, corridor) and sensor noise, ``.sens``
+    (with the native RVL/zlib codecs of ``native/sensio.cpp``) and TUM
+    readers, the replayer, the PLY writer.
   * ``ops``      — frame preprocessing (carries the fused preprocess kernel).
   * ``features`` — batched SIFT, descriptor matching, correspondence filters.
   * ``solver``   — sparse+dense Gauss-Newton bundle adjustment with PCG.
@@ -13,9 +15,15 @@ counterpart sits at the same path:
     checkpoints.
   * ``fusion``   — dense-block TSDF integrate/de-integrate (carries the
     TSDF integrate kernel), out-of-core streaming, raycast, marching cubes.
+  * ``parallel`` — the shard mesh and its collectives, global BA sharded
+    over a mesh, the multi-sequence and time-sharded chunk fan-outs, and the
+    multi-sequence pipeline driver.
   * ``eval``     — ATE.
-  * ``app``      — the command line (``python -m bundlefusion_tpu_torch.app``);
-    ``visualization`` writes its preview images.
+  * ``app``      — the command line (``python -m bundlefusion_tpu_torch.app``,
+    ``--multiseq N`` for the multi-sequence driver); ``visualization``
+    writes its preview images.
+
+Every module of the JAX package has its counterpart except ``tools/``.
 
 The hand-written CUDA kernels live in ``csrc/`` and are built with nvcc on
 first use (``kernels.py``). Every kernel wrapper runs the kernel for CUDA

@@ -10,6 +10,7 @@ checkpoints and a summary:
     python -m bundlefusion_tpu_torch.app --tum rgbd_dataset_freiburg1_desk --out out/
     python -m bundlefusion_tpu_torch.app --synthetic 66 --out out/
     python -m bundlefusion_tpu_torch.app --synthetic 11 --device cpu --out out/
+    python -m bundlefusion_tpu_torch.app --synthetic 66 --multiseq 2 --out out/
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=240, help="synthetic height")
     p.add_argument(
         "--multiseq", type=int, default=0,
-        help="run N independent synthetic sequences over N devices (not ported: ROADMAP Queue 1 item 4)",
+        help="run N independent synthetic sequences data-parallel over an N-shard mesh on --device "
+        "(shard i on card i modulo the card count; requires --synthetic)",
     )
     p.add_argument("--checkpoint-every", type=int, default=0, help="chunks between checkpoints (0=off)")
     p.add_argument("--preview-every", type=int, default=0, help="frames between preview images (0=off)")
@@ -87,10 +89,9 @@ def main(argv=None) -> int:
             )
 
     if args.multiseq:
-        raise NotImplementedError(
-            "--multiseq runs parallel/ (sequences sharded over devices), which is not ported yet: "
-            "ROADMAP Queue 1 item 4"
-        )
+        if not args.synthetic:
+            raise SystemExit("--multiseq requires --synthetic N")
+        return _run_multiseq(args, cfg)
 
     gt_poses = None
     if args.sens:
@@ -141,7 +142,7 @@ def main(argv=None) -> int:
         "frames": int(out.poses.shape[0]),
         "keyframes": out.num_keyframes,
         "tracking_lost_chunks": out.tracking_lost_chunks,
-        "active_blocks": int(bf.table.num_active()),
+        "active_blocks": int(bf.state.table.num_active()),
         "timing": bf.timing.summary(),
     }
     if gt_poses is not None:
@@ -150,6 +151,36 @@ def main(argv=None) -> int:
     if not args.no_mesh:
         verts, colors, faces = bf.extract_mesh()
         ply.write_ply(os.path.join(args.out, "mesh.ply"), verts, colors, faces)
+        summary["mesh_triangles"] = int(len(faces))
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _run_multiseq(args, cfg) -> int:
+    """D synthetic sequences (seeds 0..D-1) data-parallel over a D-shard mesh."""
+    from .eval.ate import ate_rmse
+    from .io import ply
+    from .io.synthetic import generate_sequence
+    from .parallel.mesh import make_mesh
+    from .parallel.spmd_pipeline import extract_mesh_for, run_sequences_sharded
+
+    d = args.multiseq
+    mesh = make_mesh(d, args.device)
+    seqs = [
+        generate_sequence(args.synthetic, width=args.width, height=args.height, seed=s, device=args.device)
+        for s in range(d)
+    ]
+    out = run_sequences_sharded(seqs, mesh, cfg, anchor_poses=np.stack([s.poses[0] for s in seqs]))
+    summary = {"sequences": d, "mesh": repr(mesh), "keyframes_per_seq": out.num_keyframes, "ate_rmse_m": {}}
+    for i in range(d):
+        n = min(out.poses.shape[1], len(seqs[i].poses))
+        summary["ate_rmse_m"][i] = ate_rmse(out.poses[i, :n], seqs[i].poses[:n], valid=out.valid[i, :n])
+        np.save(os.path.join(args.out, f"trajectory_{i}.npy"), out.poses[i])
+    if not args.no_mesh:
+        verts, colors, faces = extract_mesh_for(out, 0, cfg)
+        ply.write_ply(os.path.join(args.out, "mesh_0.ply"), verts, colors, faces)
         summary["mesh_triangles"] = int(len(faces))
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)

@@ -32,8 +32,9 @@ from .global_graph import GlobalGraph
 from .pipeline import BundleFusion, DeviceCtrl
 from .trajectory import TrajectoryState
 
+# device state: fields of the pipeline's FusionState
 _STATES = {"graph": GlobalGraph, "traj": TrajectoryState, "ctrl": DeviceCtrl}
-_DENSE = ("_ring_frame", "_local_traj_dev", "_chunk_valid_dev", "_runlog_dev", "blocks_updated", "_gc_freed_total")
+_DENSE = ("ring_frame", "local_trajs", "chunk_valid", "runlog_rows", "blocks_updated", "gc_freed_total")
 # host state: pipeline attribute -> key in the file (the JAX package's keys)
 _HOST_FIELDS = {
     "num_frames": "num_frames",
@@ -59,19 +60,20 @@ def save_checkpoint(bf: BundleFusion, path: str) -> None:
     """Serialize the full pipeline state to one file."""
     bf.sync()
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    dev = {name: state_to_numpy(getattr(bf, name)) for name in _STATES}
-    dev.update({name: getattr(bf, name).cpu().numpy() for name in _DENSE})
-    t = bf.table
+    st = bf.state
+    dev = {name: state_to_numpy(getattr(st, name)) for name in _STATES}
+    dev.update({name: getattr(st, name).cpu().numpy() for name in _DENSE})
+    t = st.table
     live = torch.nonzero(t.key_of_slot != INVALID_KEY).reshape(-1)
     dev["table"] = {
         "keys": t.keys.cpu().numpy(), "slot_of": t.slot_of.cpu().numpy(), "key_of_slot": t.key_of_slot.cpu().numpy(),
         "live": live.cpu().numpy(), "sdf": _rows(t.sdf, live), "weight": _rows(t.weight, live),
         "color": _rows(t.color, live),
     }
-    ring = torch.nonzero(bf._ring_frame >= 0).reshape(-1)
-    dev["ring"] = {"slots": ring.cpu().numpy(), "d16": _rows(bf._hist_d16, ring), "c8": _rows(bf._hist_c8, ring)}
+    ring = torch.nonzero(st.ring_frame >= 0).reshape(-1)
+    dev["ring"] = {"slots": ring.cpu().numpy(), "d16": _rows(st.hist_d16, ring), "c8": _rows(st.hist_c8, ring)}
     n = bf.num_frames
-    dev["upd"] = {"masks": bf._upd_masks[:n].cpu().numpy(), "keys": bf._upd_keys[:n].cpu().numpy()}
+    dev["upd"] = {"masks": st.upd_masks[:n].cpu().numpy(), "keys": st.upd_keys[:n].cpu().numpy()}
     host = {key: getattr(bf, name) for name, key in _HOST_FIELDS.items()}
     host["config_json"] = bf.config.to_json()
     host["camera"] = tuple(bf.cam)
@@ -92,19 +94,20 @@ def load_checkpoint(path: str, *, device: torch.device | str = "cuda") -> Bundle
     def put(x):
         return torch.as_tensor(np.asarray(x), device=bf.device)
 
+    st = bf.state
     for name, cls in _STATES.items():
-        setattr(bf, name, state_from_numpy(dev[name], bf.device, cls))
+        setattr(st, name, state_from_numpy(dev[name], bf.device, cls))
     for name in _DENSE:
-        setattr(bf, name, put(dev[name]))
+        setattr(st, name, put(dev[name]))
     tab = dev["table"]
-    t = bf.table
+    t = st.table
     t.keys, t.slot_of, t.key_of_slot = put(tab["keys"]), put(tab["slot_of"]), put(tab["key_of_slot"])
     live = put(tab["live"])
     t.sdf[live], t.weight[live], t.color[live] = put(tab["sdf"]), put(tab["weight"]), put(tab["color"])
     ring = put(dev["ring"]["slots"])
-    bf._hist_d16[ring], bf._hist_c8[ring] = put(dev["ring"]["d16"]), put(dev["ring"]["c8"])
+    st.hist_d16[ring], st.hist_c8[ring] = put(dev["ring"]["d16"]), put(dev["ring"]["c8"])
     n = host["num_frames"]
-    bf._upd_masks[:n], bf._upd_keys[:n] = put(dev["upd"]["masks"]), put(dev["upd"]["keys"])
+    st.upd_masks[:n], st.upd_keys[:n] = put(dev["upd"]["masks"]), put(dev["upd"]["keys"])
     for name, key in _HOST_FIELDS.items():
         setattr(bf, name, host[key])
     return bf

@@ -16,7 +16,7 @@ from ..config import BundlingConfig
 from ..features import filters, matcher, sift
 from ..geometry import se3
 from ..geometry.camera import CameraModel
-from ..ops.preprocess import FrameCache, preprocess_frames_y
+from ..ops.preprocess import FrameCache, preprocess_frames, preprocess_frames_y
 from ..solver import gn, residuals
 from ..utils.tensor_ops import top_k
 
@@ -86,7 +86,7 @@ def fuse_keys_to_keyframe(keys: sift.SiftKeys, local_traj, frame_valid, cfg: Bun
 
 def process_chunk(
     depth_raw: torch.Tensor,  # [S+1, H, W] int16-stored uint16 mm wire (or f32 meters)
-    y8: torch.Tensor,  # [S+1, H, W] uint8 luma wire
+    color: torch.Tensor,  # [S+1, H, W] uint8 luma (v2 wire) or [S+1, H, W, 3] RGB (v1 wire, or f32)
     cam: CameraModel,
     cache_cam: CameraModel,
     cfg: BundlingConfig,
@@ -94,12 +94,14 @@ def process_chunk(
     sigma_r: float = 0.1,
     filter_depth: bool = True,
 ) -> ChunkResult:
-    """The whole local pipeline for one chunk."""
+    """The whole local pipeline for one chunk, from the luma wire (ndim 3)
+    or from RGB (ndim 4); the two give different intensities by design."""
     s1 = depth_raw.shape[0]
     dev = depth_raw.device
     # only the filtered depth and the intensity are read below: no geometry
-    frames, cache = preprocess_frames_y(
-        depth_raw, y8, cam, cache_cam, sigma_d=sigma_d, sigma_r=sigma_r, filter_depth=filter_depth,
+    prep = preprocess_frames_y if color.dim() == 3 else preprocess_frames
+    frames, cache = prep(
+        depth_raw, color, cam, cache_cam, sigma_d=sigma_d, sigma_r=sigma_r, filter_depth=filter_depth,
         geometry=False,
     )
     keys = sift.detect_batch(frames.intensity, frames.depth, cam, cfg)

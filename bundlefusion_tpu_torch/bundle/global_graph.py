@@ -2,7 +2,9 @@
 (port of ``bundlefusion_tpu.bundle.global_graph``). Every chunk's keyframe is
 matched against ALL previous keyframes (loop closure and relocalization are
 one mechanism), surviving correspondences go into the fixed-capacity global
-buffer, and a global BA over keyframe poses runs with max-residual pruning.
+buffer, and a global BA over keyframe poses runs with max-residual pruning,
+on one device (:func:`global_solve`) or sharded over a mesh
+(:func:`global_solve_sharded`).
 
 The state is updated in place where the JAX pipeline donates it: the
 keyframe slot write of :func:`add_keyframe`.
@@ -259,3 +261,31 @@ def _finish_global_solve(graph: GlobalGraph, poses, problem: gn.GNProblem, cfg: 
     has_corr = has_corr.scatter_reduce(0, corrs.img_b.long(), w_ok, "amax")
     new_valid = graph.valid & ((has_corr > 0) | (torch.arange(kmax, device=dev) == 0))
     return dataclasses.replace(graph, poses=poses, corrs=corrs, valid=new_valid)
+
+
+def global_solve_sharded(graph: GlobalGraph, mesh, cache_cam: CameraModel | None, cfg: BundlingConfig):
+    """:func:`global_solve` with the system assembly sharded over the
+    correspondences and the PCG row-sharded across ``mesh``
+    (``parallel/sharded_ba.py``): the same sparse + dense terms, weight
+    ramp, pruning and keyframe invalidation. Returns (graph, removed)."""
+    from ..parallel import sharded_ba
+
+    kmax = cfg.max_num_images
+    dev = graph.poses.device
+    free = graph.valid & (torch.arange(kmax, device=dev) > 0)
+    dense_on = (
+        graph.dense_pair_on & graph.valid[graph.dense_pairs_a.long()] & graph.valid[graph.dense_pairs_b.long()]
+    )
+    problem = gn.GNProblem(
+        corrs=graph.corrs,
+        dense_pairs_a=graph.dense_pairs_a,
+        dense_pairs_b=graph.dense_pairs_b,
+        dense_pair_active=dense_on,
+        free_mask=free,
+    )
+    poses, problem, removed = sharded_ba.solve_and_prune_sharded(
+        mesh, graph.poses, problem, graph.cache if cfg.use_dense_global else None, cache_cam, cfg,
+        gn_iters=cfg.global_gn_iters, pcg_iters=cfg.global_pcg_iters,
+        use_dense=cfg.use_dense_global, prune_rounds=1,
+    )
+    return _finish_global_solve(graph, poses, problem, cfg), removed

@@ -19,8 +19,15 @@ chunks until streaming engages, then every chunk), the optional periodic
 revalidation after a relocalization (``revalidate_every_chunks``), and
 ``finalize()``.
 
-Not ported yet (raise ``NotImplementedError``): filtered-depth integration,
-a distinct integration resolution, and multi-chip execution.
+Options that change the path: ``integrate_filtered_depth`` filters depth at
+the wire (``framewire.bilateral_wire``) instead of in the chunk step; an
+integration resolution below the input resolution decimates depth and colour
+at the wire for the ring, the FrameStore and K1; a ``mesh``
+(``parallel.mesh.make_mesh``) shards the global BA over its shards
+(``global_graph.global_solve_sharded``). :class:`FusionState` and the chunk
+step's functions (:func:`_graph_step`, :func:`_plan_and_fuse`) are also
+each shard's state and steps in the multi-sequence driver
+(``parallel/spmd_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import AppConfig, Config
 from ..fusion import blocks, marching_cubes, raycast, streaming, tsdf
 from ..geometry import se3
 from ..geometry.camera import CameraModel
@@ -166,26 +173,90 @@ def _publish_all(traj, local_trajs, chunk_valid, kf_poses, kf_valid, submap_size
     return traj
 
 
-def _plan_and_fuse(st: "BundleFusion", chunk_idx: int, stats_in, d16_new, c8_new, new_ids, new_valid,
-                   integrate_mask, exclude_from: int, budget: int) -> None:
+@dataclass
+class FusionState:
+    """One sequence's device state: what the chunk step reads and writes
+    (``_graph_step``, ``_publish_all``, ``_plan_and_fuse``, the GC). The
+    serial pipeline holds one; the multi-sequence driver one per shard. The
+    ring, the per-frame update records and the runlog carry one scratch row
+    past the end: masked writes land there instead of being dropped."""
+
+    anchor: torch.Tensor  # [4, 4] world pose of the first keyframe
+    graph: global_graph.GlobalGraph
+    ctrl: DeviceCtrl
+    table: blocks.BlockTable
+    traj: trajectory.TrajectoryState
+    # frame ring (slot = id % R) at the integration resolution; depth is
+    # uint16 mm held in int16 storage (wire_depth_to_m reads it back)
+    hist_d16: torch.Tensor  # [R + 1, H, W] int16
+    hist_c8: torch.Tensor  # [R + 1, *color_hw, 3] uint8
+    ring_frame: torch.Tensor  # [R] int32, the frame in each slot (-1: none)
+    # per-frame update masks / key lists recorded at integrate time (exact
+    # de-integration; see tsdf.FuseDiag)
+    upd_masks: torch.Tensor  # [F + 1, cap] bool
+    upd_keys: torch.Tensor  # [F + 1, cap] int32
+    local_trajs: torch.Tensor  # [Cmax, S + 1, 4, 4] each chunk's local poses
+    chunk_valid: torch.Tensor  # [Cmax] bool
+    runlog_rows: torch.Tensor  # [Cmax + 1, RUNREC_WIDTH], read once at finalize
+    blocks_updated: torch.Tensor  # f32, measured work counter
+    gc_freed_total: torch.Tensor  # f32
+
+    @property
+    def history_cap(self) -> int:
+        return self.ring_frame.shape[0]
+
+
+def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, int], anchor: np.ndarray,
+                      device) -> FusionState:
+    """A fresh :class:`FusionState`: the ring holds depth at ``int_cam``'s
+    resolution and colour at ``color_hw`` (half of it on the serial
+    pipeline's wire, all of it on the multi-sequence driver's v1 wire)."""
+    bc, ac = cfg.bundling, cfg.app
+    dev = torch.device(device)
+    ring_cap = min(bc.max_frames, ac.history_ring_frames)
+    if ring_cap < bc.chunk_size:
+        raise ValueError(f"history_ring_frames={ac.history_ring_frames} must hold at least one chunk")
+    max_chunks = bc.max_frames // bc.submap_size
+    cap = ac.blocks_per_frame_cap
+    return FusionState(
+        anchor=torch.as_tensor(np.asarray(anchor, np.float32), device=dev),
+        graph=global_graph.make_graph(bc, bc.cache_height, bc.cache_width, dev),
+        ctrl=make_ctrl(dev),
+        table=blocks.make_table(ac.block_capacity, dev),
+        traj=trajectory.make_trajectory(bc.max_frames, dev),
+        hist_d16=torch.zeros((ring_cap + 1, int_cam.height, int_cam.width), dtype=torch.int16, device=dev),
+        hist_c8=torch.zeros((ring_cap + 1, *color_hw, 3), dtype=torch.uint8, device=dev),
+        ring_frame=torch.full((ring_cap,), -1, dtype=torch.int32, device=dev),
+        upd_masks=torch.zeros((bc.max_frames + 1, cap), dtype=torch.bool, device=dev),
+        upd_keys=torch.full((bc.max_frames + 1, cap), blocks.INVALID_KEY, dtype=torch.int32, device=dev),
+        local_trajs=torch.eye(4, device=dev).repeat(max_chunks, bc.chunk_size, 1, 1),
+        chunk_valid=torch.zeros(max_chunks, dtype=torch.bool, device=dev),
+        runlog_rows=torch.zeros((max_chunks + 1, RUNREC_WIDTH), device=dev),
+        blocks_updated=torch.zeros((), device=dev),
+        gc_freed_total=torch.zeros((), device=dev),
+    )
+
+
+def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, chunk_idx: int, stats_in, d16_new,
+                   c8_new, new_ids, new_valid, integrate_mask, exclude_from: int, budget: int) -> None:
     """All TSDF pose maintenance of one chunk, on the device: ring write of
     the new frames, budgeted re-integration planning, de-integration at stale
-    poses, (re-)integration at optimized poses (K1), trajectory bookkeeping,
-    and the diagnostics row. Updates ``st``'s device state in place."""
-    cfg = st.config.app
+    poses, (re-)integration at optimized poses (K1 at ``int_cam``),
+    trajectory bookkeeping, and the diagnostics row. Updates ``st`` in
+    place."""
     r_cap = st.history_cap
     n_new = new_ids.shape[0]
 
     # 1. ring write (slot = id % R); masked rows go to the scratch row R
     slots_new = torch.where(new_valid, new_ids % r_cap, r_cap)
-    st._hist_d16[slots_new] = d16_new  # in place (donated in the JAX step)
-    st._hist_c8[slots_new] = c8_new
-    st._ring_frame = set_drop(st._ring_frame, slots_new, new_ids.to(torch.int32))
+    st.hist_d16[slots_new] = d16_new  # in place (donated in the JAX step)
+    st.hist_c8[slots_new] = c8_new
+    st.ring_frame = set_drop(st.ring_frame, slots_new, new_ids.to(torch.int32))
 
     # 2. plan: residency-aware, new frames excluded (they integrate explicitly)
     plan = trajectory.plan_reintegration(
         st.traj, budget, rot_thresh=cfg.reint_rot_thresh, trans_thresh=cfg.reint_trans_thresh,
-        exclude_from=exclude_from, ring_frame=st._ring_frame,
+        exclude_from=exclude_from, ring_frame=st.ring_frame,
     )
     frames = torch.cat([new_ids, plan.frames])
     deint = torch.cat([torch.zeros_like(new_valid), plan.deint_mask])
@@ -193,7 +264,7 @@ def _plan_and_fuse(st: "BundleFusion", chunk_idx: int, stats_in, d16_new, c8_new
 
     # 3. ring residency: planned frames spilled past the ring are deferred
     slots = frames % r_cap
-    resident = st._ring_frame[slots] == frames
+    resident = st.ring_frame[slots] == frames
     ring_miss = torch.sum((deint | reint) & ~resident)
     deint = deint & resident
     reint = reint & resident
@@ -201,11 +272,11 @@ def _plan_and_fuse(st: "BundleFusion", chunk_idx: int, stats_in, d16_new, c8_new
     # 4. fuse: de-integrate at integrated_pose, (re-)integrate at opt_pose
     traj = st.traj
     new_poses = traj.opt_pose[frames]
-    recorded = st._upd_masks[frames]
+    recorded = st.upd_masks[frames]
     st.table, diag = tsdf.fuse_batch(
-        st.table, wire_depth_to_m(st._hist_d16[slots]), st._hist_c8[slots],
-        traj.integrated_pose[frames], new_poses, deint, reint, recorded, st.int_cam, cfg,
-        upd_keys_rec=st._upd_keys[frames], deint_rows=frames.shape[0] - n_new,
+        st.table, wire_depth_to_m(st.hist_d16[slots]), st.hist_c8[slots],
+        traj.integrated_pose[frames], new_poses, deint, reint, recorded, int_cam, cfg,
+        upd_keys_rec=st.upd_keys[frames], deint_rows=frames.shape[0] - n_new,
     )
     integrated = set_drop(traj.integrated, frames, False, deint)
     st.traj = dataclasses.replace(
@@ -215,9 +286,9 @@ def _plan_and_fuse(st: "BundleFusion", chunk_idx: int, stats_in, d16_new, c8_new
     )
     blocks_touched = (torch.sum(recorded & deint[:, None]) + torch.sum(diag.upd_mask)).to(torch.float32)
     # in place; rows not re-integrated go to the scratch row F
-    reint_ids = torch.where(reint, frames, st._upd_masks.shape[0] - 1)
-    st._upd_masks[reint_ids] = diag.upd_mask
-    st._upd_keys[reint_ids] = diag.upd_keys
+    reint_ids = torch.where(reint, frames, st.upd_masks.shape[0] - 1)
+    st.upd_masks[reint_ids] = diag.upd_mask
+    st.upd_keys[reint_ids] = diag.upd_keys
     st.blocks_updated = st.blocks_updated + blocks_touched
 
     # 5. diagnostics row (read once at finalize); stats_in[8] carries the
@@ -230,12 +301,12 @@ def _plan_and_fuse(st: "BundleFusion", chunk_idx: int, stats_in, d16_new, c8_new
                 [
                     diag.overflow.to(f32), diag.upd_truncated.to(f32), diag.patch_overflow.to(f32),
                     torch.sum((deint | reint)[n_new:]).to(f32), ring_miss.to(f32),
-                    st._gc_freed_total, blocks_touched, st.table.num_active().to(f32), stats_in[8],
+                    st.gc_freed_total, blocks_touched, st.table.num_active().to(f32), stats_in[8],
                 ]
             ),
         ]
     )
-    st._runlog_dev[chunk_idx] = row  # in place
+    st.runlog_rows[chunk_idx] = row  # in place
 
 
 class PipelineOutputs(NamedTuple):
@@ -263,69 +334,58 @@ class BundleFusion:
         self.config.validate()
         bc = self.config.bundling
         ac = self.config.app
+        # mesh: a parallel.mesh.Mesh; when set, the global BA runs sharded
+        # over it (parallel/sharded_ba.py)
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("multi-chip execution (a mesh) is not ported yet")
-        if ac.integrate_filtered_depth:
-            raise NotImplementedError("integrate_filtered_depth=True is not ported yet")
-        if (ac.integration_width, ac.integration_height) != (cam.width, cam.height):
-            raise NotImplementedError(
-                "an integration resolution different from the input resolution is not ported yet"
-            )
+            from ..parallel import sharded_ba
+
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"the mesh's devices must be {self.device.type} devices like the pipeline's: {mesh!r}")
+            sharded_ba.check_rows(6 * bc.max_num_images, mesh)
         self.cam = cam
         if cam.width % bc.cache_width or cam.height % bc.cache_height:
             raise ValueError(
                 f"cache resolution {bc.cache_width}x{bc.cache_height} must divide "
                 f"the frame resolution {cam.width}x{cam.height}"
             )
-        if cam.width % 2 or cam.height % 2:
-            raise ValueError("frame dimensions must be even (half-res color wire)")
         self.cache_cam = cam.scaled(bc.cache_width, bc.cache_height)
-        self.int_cam = cam
+        # SIFT and bundling run at the input resolution, the TSDF at the
+        # integration resolution; the wire decimates depth and colour by
+        # nearest sampling, so the ring and the FrameStore hold exact bytes
+        # for de-integration. Only integer ratios are supported.
+        if (ac.integration_width, ac.integration_height) == (cam.width, cam.height):
+            self.int_cam = cam
+        else:
+            if cam.width % ac.integration_width or cam.height % ac.integration_height:
+                raise ValueError(
+                    f"integration resolution {ac.integration_width}x{ac.integration_height} must "
+                    f"integer-divide the input resolution {cam.width}x{cam.height}"
+                )
+            self.int_cam = cam.scaled(ac.integration_width, ac.integration_height)
+        self._int_step = (cam.height // self.int_cam.height, cam.width // self.int_cam.width)
+        if cam.width % 2 or cam.height % 2 or self.int_cam.width % 2 or self.int_cam.height % 2:
+            raise ValueError("frame dimensions must be even (half-res color wire)")
         self.S = bc.submap_size
         self.chunk_frames = bc.chunk_size
         dev = self.device
 
-        self.table = blocks.make_table(ac.block_capacity, dev)
-        self.graph = global_graph.make_graph(bc, bc.cache_height, bc.cache_width, dev)
-        self.traj = trajectory.make_trajectory(bc.max_frames, dev)
-        self.ctrl = make_ctrl(dev)
         self.num_frames = 0
         self.num_keyframes = 0
         self.chunk_count = 0
-        # measured work counters: device-side blocks updated, host GN iterations
-        self.blocks_updated = torch.zeros((), device=dev)
-        self.gn_iters_executed = 0
-        self._gc_freed_total = torch.zeros((), device=dev)
+        self.gn_iters_executed = 0  # host GN iterations (the device counts blocks updated)
         self.anchor = np.eye(4, dtype=np.float32) if anchor_pose is None else anchor_pose
-        self._anchor_dev = torch.as_tensor(np.asarray(self.anchor, np.float32), device=dev)
-
+        # the device state; the ring holds half-res colour (the v2 wire).
+        # Finalize's service rounds log in the runlog's scratch row.
+        self.state = make_fusion_state(
+            self.config, self.int_cam, (self.int_cam.height // 2, self.int_cam.width // 2), self.anchor, dev
+        )
+        self.max_chunks = bc.max_frames // self.S
         # frame storage for de/re-integration: the host FrameStore holds every
-        # frame (wire format); the device ring caches slot = id % R. Depth is
-        # uint16 mm held in int16 storage (wire_depth_to_m reads it back).
-        # The ring and the per-frame records carry one scratch row past the
-        # end: masked writes land there instead of being dropped.
-        self.history_cap = min(bc.max_frames, ac.history_ring_frames)
-        if self.history_cap < bc.chunk_size:
-            raise ValueError(
-                f"history_ring_frames={ac.history_ring_frames} must hold at least one chunk"
-            )
-        h, w = cam.height, cam.width
-        self._hist_d16 = torch.zeros((self.history_cap + 1, h, w), dtype=torch.int16, device=dev)
-        self._hist_c8 = torch.zeros((self.history_cap + 1, h // 2, w // 2, 3), dtype=torch.uint8, device=dev)
-        self._ring_frame = torch.full((self.history_cap,), -1, dtype=torch.int32, device=dev)
+        # frame (wire format); the device ring caches slot = id % R
         self._frame_store: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._next_fid = 0
         self._ring_uploads = 0
-        # per-frame update masks / key lists recorded at integrate time
-        # (exact de-integration; see tsdf.FuseDiag)
-        cap = ac.blocks_per_frame_cap
-        self._upd_masks = torch.zeros((bc.max_frames + 1, cap), dtype=torch.bool, device=dev)
-        self._upd_keys = torch.full((bc.max_frames + 1, cap), blocks.INVALID_KEY, dtype=torch.int32, device=dev)
-        self.max_chunks = bc.max_frames // self.S
-        self._local_traj_dev = torch.eye(4, device=dev).repeat(self.max_chunks, self.chunk_frames, 1, 1)
-        self._chunk_valid_dev = torch.zeros(self.max_chunks, dtype=torch.bool, device=dev)
-        # +1 scratch row: finalize's service rounds log there
-        self._runlog_dev = torch.zeros((self.max_chunks + 1, RUNREC_WIDTH), device=dev)
         self._pending: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._finalized = False
         self._reloc_seen = 0  # relocalizations already followed by a revalidation
@@ -344,12 +404,20 @@ class BundleFusion:
     def push_frame(self, depth: np.ndarray, color: np.ndarray) -> None:
         """Feed one frame; chunks are processed as soon as complete. Frames
         convert to the wire format on the host (uint16 mm depth, uint8 luma,
-        half-res uint8 colour) and upload once per chunk."""
+        half-res uint8 colour; with ``integrate_filtered_depth`` the depth is
+        bilateral-filtered there, so the ring, the FrameStore and every
+        device program see the same bytes; with a separate integration
+        resolution, depth and colour are also decimated for fusion) and
+        upload once per chunk."""
         ac = self.config.app
         d16, y8, c8h = framewire.frame_to_wire2(depth, color, depth_min=ac.depth_min, depth_max=ac.depth_max)
-        self._frame_store[self._next_fid] = (d16, c8h)
+        if ac.integrate_filtered_depth:
+            d16 = framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
+        sy, sx = self._int_step
+        d16i, c8hi = (d16, c8h) if (sy, sx) == (1, 1) else (d16[::sy, ::sx], c8h[::sy, ::sx])
+        self._frame_store[self._next_fid] = (d16i, c8hi)
         self._next_fid += 1
-        self._pending.append((d16, y8, c8h))
+        self._pending.append((d16, y8, c8h, d16i, c8hi))
         self._maybe_process_chunk()
 
     def push_batch(self, depth: np.ndarray, color: np.ndarray, valid=None) -> None:
@@ -364,30 +432,46 @@ class BundleFusion:
             self._process_chunk(*self._upload(self._pending[: self.chunk_frames]))
             self._pending = self._pending[self.S :]
 
-    def _upload(self, rows: list[tuple[np.ndarray, np.ndarray, np.ndarray]]):
+    def _upload(self, rows: list[tuple[np.ndarray, ...]]):
         """Stack one chunk's wire on the host into one (pinned, on a card)
-        buffer and send it with one non-blocking copy. Returns device views
-        (depth [cf, H, W] int16, luma [cf, H, W] uint8, colour [cf, H/2, W/2, 3])."""
+        buffer and send it with one non-blocking copy. Returns device views:
+        depth [cf, H, W] int16, luma [cf, H, W] uint8, colour
+        [cf, H/2, W/2, 3], then depth and half-res colour at the integration
+        resolution (the same views when it is the input resolution)."""
         cf = len(rows)
         h, w = self.cam.height, self.cam.width
-        n1, n2, n3 = cf * h * w * 2, cf * h * w, cf * (h // 2) * (w // 2) * 3
+        hi, wi = self.int_cam.height, self.int_cam.width
+        same = (hi, wi) == (h, w)
+        # (field of the row, shape, dtype); the uint16 segments first, so
+        # that each starts at an even offset
+        segs = [(0, (cf, h, w), np.uint16), (3, (cf, hi, wi), np.uint16), (1, (cf, h, w), np.uint8),
+                (2, (cf, h // 2, w // 2, 3), np.uint8), (4, (cf, hi // 2, wi // 2, 3), np.uint8)]
+        if same:
+            segs = [x for x in segs if x[0] < 3]
+        sizes = [int(np.prod(shape)) * np.dtype(dt).itemsize for _, shape, dt in segs]
         pinned = self.device.type == "cuda"
-        flat = torch.empty(n1 + n2 + n3, dtype=torch.uint8, pin_memory=pinned)
+        flat = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=pinned)
         host = flat.numpy()
-        host[:n1].view(np.uint16).reshape(cf, h, w)[:] = [r[0] for r in rows]
-        host[n1 : n1 + n2].reshape(cf, h, w)[:] = [r[1] for r in rows]
-        host[n1 + n2 :].reshape(cf, h // 2, w // 2, 3)[:] = [r[2] for r in rows]
+        off = 0
+        for (i, shape, dt), n in zip(segs, sizes):
+            host[off : off + n].view(dt).reshape(shape)[:] = [r[i] for r in rows]
+            off += n
         dev = flat.to(self.device, non_blocking=pinned)
-        d16 = dev[:n1].view(torch.int16).view(cf, h, w)
-        y8 = dev[n1 : n1 + n2].view(cf, h, w)
-        c8 = dev[n1 + n2 :].view(cf, h // 2, w // 2, 3)
-        return d16, y8, c8
+        views, off = {}, 0
+        for (i, shape, dt), n in zip(segs, sizes):
+            seg = dev[off : off + n]
+            views[i] = (seg.view(torch.int16) if dt == np.uint16 else seg).view(shape)
+            off += n
+        if same:
+            views[3], views[4] = views[0], views[2]
+        return [views[i] for i in range(5)]
 
     # ------------------------------------------------------------------
     # core per-chunk step
     # ------------------------------------------------------------------
 
-    def _process_chunk(self, d_wire: torch.Tensor, y_wire: torch.Tensor, c_wire: torch.Tensor) -> None:
+    def _process_chunk(self, d_wire: torch.Tensor, y_wire: torch.Tensor, c_wire: torch.Tensor,
+                       d_wire_int: torch.Tensor, c_wire_int: torch.Tensor) -> None:
         bc = self.config.bundling
         ac = self.config.app
         c = self.chunk_count
@@ -395,25 +479,28 @@ class BundleFusion:
             raise ValueError(f"chunk {c} exceeds the keyframe/chunk capacity")
         first_frame = c * self.S
         k_idx = c  # one keyframe per chunk
+        st = self.state
         t_chunk = time.perf_counter()
 
         with self.timing.stage("chunk_local"):
             res = chunk_mod.process_chunk(
                 d_wire, y_wire, self.cam, self.cache_cam, bc,
-                sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r, filter_depth=ac.depth_filter,
+                sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
+                # with integrate_filtered_depth the wire is already filtered
+                filter_depth=ac.depth_filter and not ac.integrate_filtered_depth,
             )
         self.gn_iters_executed += bc.local_gn_iters * 2  # 2 solve+prune rounds
 
         with self.timing.stage("graph_step"):
-            self.graph, self.ctrl, integrate_mask, stats_in = _graph_step(
-                self.graph, self.ctrl, k_idx, res, self._local_traj_dev, self._chunk_valid_dev,
-                self._anchor_dev, self.cache_cam, bc, is_first=(k_idx == 0),
+            st.graph, st.ctrl, integrate_mask, stats_in = _graph_step(
+                st.graph, st.ctrl, k_idx, res, st.local_trajs, st.chunk_valid, st.anchor, self.cache_cam, bc,
+                is_first=(k_idx == 0),
             )
         self.num_keyframes = k_idx + 1
 
         if self.num_keyframes > 1:
             with self.timing.stage("global_solve"):
-                self.graph, _, _ = global_graph.global_solve(self.graph, self.cache_cam, bc)
+                self._global_solve()
             self.gn_iters_executed += bc.global_gn_iters
 
         with self.timing.stage("publish"):
@@ -426,14 +513,14 @@ class BundleFusion:
         self.num_frames = max(self.num_frames, first_frame + self.chunk_frames)
         with self.timing.stage("plan_fuse"):
             _plan_and_fuse(
-                self, c, stats_in, d_wire, c_wire, new_ids, new_valid, integrate_mask,
+                st, ac, self.int_cam, c, stats_in, d_wire_int, c_wire_int, new_ids, new_valid, integrate_mask,
                 exclude_from=first_frame + lo, budget=ac.max_reintegrations_per_frame * self.S,
             )
 
         if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
             with self.timing.stage("gc"):
-                self.table, freed = blocks.garbage_collect(self.table)
-                self._gc_freed_total = self._gc_freed_total + freed.to(torch.float32)
+                st.table, freed = blocks.garbage_collect(st.table)
+                st.gc_freed_total = st.gc_freed_total + freed.to(torch.float32)
 
         # out-of-core streaming: evict far blocks, restore near ones
         if ac.streaming_enabled and (
@@ -444,7 +531,7 @@ class BundleFusion:
         # optional mid-run revalidation after a relocalization (by default
         # deferred to finalize(): the check reads a device counter)
         if bc.revalidate_every_chunks and (c + 1) % bc.revalidate_every_chunks == 0:
-            reloc = int(self.ctrl.reloc_events)
+            reloc = int(self.state.ctrl.reloc_events)
             if reloc > self._reloc_seen:
                 self._reloc_seen = reloc
                 if self._revalidate_stale():
@@ -457,19 +544,19 @@ class BundleFusion:
         """Stream near host blocks in, then (past the occupancy watermark)
         far device blocks out, around keyframe ``k_idx``'s position."""
         ac = self.config.app
-        active_blocks = int(self.table.num_active())
-        cam_pos = self.graph.poses[k_idx, :3, 3].cpu().numpy()
+        active_blocks = int(self.state.table.num_active())
+        cam_pos = self.state.graph.poses[k_idx, :3, 3].cpu().numpy()
         n_in = n_out = 0
         with self.timing.stage("streaming"):
             if len(self.block_store):
-                self.table, n_in = streaming.stream_in(
-                    self.table, self.block_store, cam_pos, ac, free_capacity=ac.block_capacity - active_blocks
+                self.state.table, n_in = streaming.stream_in(
+                    self.state.table, self.block_store, cam_pos, ac, free_capacity=ac.block_capacity - active_blocks
                 )
                 active_blocks += n_in
             # stream-out engages only past the occupancy watermark, so small
             # scenes never pay host traffic
             if active_blocks > ac.streaming_watermark * ac.block_capacity:
-                self.table, n_out = streaming.stream_out(self.table, self.block_store, cam_pos, ac)
+                self.state.table, n_out = streaming.stream_out(self.state.table, self.block_store, cam_pos, ac)
         if n_in or n_out:
             self._streaming_on = True
             self.runlog.log(chunk=c, stream_in=n_in, stream_out=n_out, host_blocks=len(self.block_store))
@@ -483,12 +570,12 @@ class BundleFusion:
         stale chains unwind across calls, since finalize() and the periodic
         hook both re-enter here."""
         bc = self.config.bundling
-        chunk_valid_np = self._chunk_valid_dev[: self.num_keyframes].cpu().numpy()
+        chunk_valid_np = self.state.chunk_valid[: self.num_keyframes].cpu().numpy()
         n_re = 0
         # a chunk that links only through a just-revalidated neighbour
         # recovers in a later round (chains unwind one hop per round)
         for _ in range(max_rounds):
-            valid_np = self.graph.valid[: self.num_keyframes].cpu().numpy()
+            valid_np = self.state.graph.valid[: self.num_keyframes].cpu().numpy()
             stale = np.flatnonzero(~valid_np & chunk_valid_np)
             if stale.size == 0:
                 break
@@ -500,31 +587,38 @@ class BundleFusion:
                 stale = stale[np.argsort(prox, kind="stable")]
             progressed = 0
             for k in stale[:max_per_event].tolist():
-                mres = global_graph.global_match(self.graph, k, self.cache_cam, bc, against_all=True)
-                self.graph = mres.graph
+                mres = global_graph.global_match(self.state.graph, k, self.cache_cam, bc, against_all=True)
+                self.state.graph = mres.graph
                 if bool(mres.any_valid):
                     j = int(mres.best_prev)
                     # in place, as the graph step writes keyframe slots
-                    self.graph.poses[k] = self.graph.poses[j] @ se3.mat_inverse(mres.transforms[j])
-                    self.graph.valid[k] = True
+                    self.state.graph.poses[k] = self.state.graph.poses[j] @ se3.mat_inverse(mres.transforms[j])
+                    self.state.graph.valid[k] = True
                     progressed += 1
             n_re += progressed
             if not progressed:
                 break
         return n_re
 
+    def _global_solve(self) -> None:
+        """Global BA of the keyframe graph, sharded over the mesh when there is one."""
+        bc = self.config.bundling
+        if self.mesh is not None:
+            self.state.graph, _ = global_graph.global_solve_sharded(self.state.graph, self.mesh, self.cache_cam, bc)
+        else:
+            self.state.graph, _, _ = global_graph.global_solve(self.state.graph, self.cache_cam, bc)
+
     def _post_revalidate_solve(self) -> None:
         if self.num_keyframes > 1:
-            self.graph, _, _ = global_graph.global_solve(self.graph, self.cache_cam, self.config.bundling)
+            self._global_solve()
         self._publish_trajectory()
 
     def _publish_trajectory(self) -> None:
         if self.chunk_count == 0 and self.num_keyframes == 0:
             return
-        self.traj = _publish_all(
-            self.traj, self._local_traj_dev, self._chunk_valid_dev, self.graph.poses, self.graph.valid,
-            self.S, self.chunk_frames,
-        )
+        st = self.state
+        st.traj = _publish_all(st.traj, st.local_trajs, st.chunk_valid, st.graph.poses, st.graph.valid, self.S,
+                               self.chunk_frames)
 
     # ------------------------------------------------------------------
     # finalize: host-store re-integration service
@@ -539,9 +633,10 @@ class BundleFusion:
         if budget <= 0 or self.num_frames == 0:
             return 0
         rounds = max_rounds if max_rounds is not None else max(2, self.num_keyframes * 2)
-        r_cap = self.history_cap
+        st = self.state
+        r_cap = st.history_cap
         dev = self.device
-        cf, h, w = self.chunk_frames, self.cam.height, self.cam.width
+        cf, h, w = self.chunk_frames, self.int_cam.height, self.int_cam.width
         empty_d = torch.zeros((cf, h, w), dtype=torch.int16, device=dev)
         empty_c = torch.zeros((cf, h // 2, w // 2, 3), dtype=torch.uint8, device=dev)
         empty_ids = torch.zeros(cf, dtype=torch.int64, device=dev)
@@ -550,14 +645,14 @@ class BundleFusion:
         total = 0
         for _ in range(rounds):
             plan = trajectory.plan_reintegration(
-                self.traj, budget, rot_thresh=ac.reint_rot_thresh, trans_thresh=ac.reint_trans_thresh,
+                st.traj, budget, rot_thresh=ac.reint_rot_thresh, trans_thresh=ac.reint_trans_thresh,
                 exclude_from=self.num_frames,
             )
             frames_np = plan.frames.cpu().numpy()
             work = (plan.deint_mask | plan.reint_mask).cpu().numpy()
             if not work.any():
                 break
-            ring_np = self._ring_frame.cpu().numpy()
+            ring_np = st.ring_frame.cpu().numpy()
             # at most one frame per ring slot per round (plan order = priority)
             chosen: dict[int, int] = {}
             for f in frames_np[work].tolist():
@@ -566,13 +661,13 @@ class BundleFusion:
             if ups:
                 sl = torch.as_tensor([f % r_cap for f in ups], device=dev)
                 d = np.stack([self._frame_store[f][0] for f in ups]).view(np.int16)
-                self._hist_d16[sl] = torch.as_tensor(d, device=dev)
-                self._hist_c8[sl] = torch.as_tensor(np.stack([self._frame_store[f][1] for f in ups]), device=dev)
-                self._ring_frame[sl] = torch.as_tensor(ups, dtype=torch.int32, device=dev)
+                st.hist_d16[sl] = torch.as_tensor(d, device=dev)
+                st.hist_c8[sl] = torch.as_tensor(np.stack([self._frame_store[f][1] for f in ups]), device=dev)
+                st.ring_frame[sl] = torch.as_tensor(ups, dtype=torch.int32, device=dev)
                 self._ring_uploads += len(ups)
             _plan_and_fuse(
-                self, self.max_chunks, torch.zeros(9, device=dev), empty_d, empty_c, empty_ids, empty_valid,
-                no_integrate, exclude_from=self.num_frames, budget=budget,
+                st, ac, self.int_cam, self.max_chunks, torch.zeros(9, device=dev), empty_d, empty_c, empty_ids,
+                empty_valid, no_integrate, exclude_from=self.num_frames, budget=budget,
             )
             total += len(chosen)
         return total
@@ -606,7 +701,7 @@ class BundleFusion:
             return
         self.sync()
         self._finalized = True
-        if self.num_keyframes > 1 and int(self.ctrl.reloc_events) > self._reloc_seen:
+        if self.num_keyframes > 1 and int(self.state.ctrl.reloc_events) > self._reloc_seen:
             # each call is bounded; loop until no progress so long stale
             # chains still unwind
             while self._revalidate_stale():
@@ -615,7 +710,7 @@ class BundleFusion:
         self._emit_runlog()
 
     def _emit_runlog(self) -> None:
-        rows = self._runlog_dev[: self.chunk_count].cpu().numpy()
+        rows = self.state.runlog_rows[: self.chunk_count].cpu().numpy()
         ints = ("num_keys", "filtered_matches", "pairs_valid", "corr_cursor", "alloc_overflow",
                 "upd_truncated", "patch_overflow", "reint_frames", "ring_miss", "blocks_touched",
                 "active_blocks", "lost_chunks", "gc_freed_total")
@@ -636,17 +731,17 @@ class BundleFusion:
     @property
     def tracking_lost(self) -> bool:
         self.sync()
-        return bool(self.ctrl.tracking_lost)
+        return bool(self.state.ctrl.tracking_lost)
 
     @property
     def lost_chunks(self) -> int:
         self.sync()
-        return int(self.ctrl.lost_chunks)
+        return int(self.state.ctrl.lost_chunks)
 
     def current_poses(self) -> tuple[np.ndarray, np.ndarray]:
         self.sync()
         n = self.num_frames
-        return self.traj.opt_pose[:n].cpu().numpy(), self.traj.opt_valid[:n].cpu().numpy()
+        return self.state.traj.opt_pose[:n].cpu().numpy(), self.state.traj.opt_valid[:n].cpu().numpy()
 
     def extract_mesh(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Mesh the whole scene: the device table, then the host store's cold
@@ -656,9 +751,13 @@ class BundleFusion:
         Returns (vertices [V, 3], colours [V, 3], faces [F, 3])."""
         self.sync()
         ac = self.config.app
-        parts = [marching_cubes.extract_mesh(self.table, ac)]
+        parts = [marching_cubes.extract_mesh(self.state.table, ac)]
         batch = 2048
         for keys, sdf, wgt, col in self.block_store.snapshot_batches(batch):
+            # a key stored twice keeps its last copy, as the JAX package's
+            # in-order scatter does
+            last = streaming.last_of_each(keys)
+            keys, sdf, wgt, col = keys[last], sdf[last], wgt[last], col[last]
             t = blocks.make_table(batch, self.device)
             keys_t = torch.as_tensor(keys, device=self.device)
             t, _ = blocks.allocate(t, keys_t)
@@ -686,7 +785,7 @@ class BundleFusion:
         ac = self.config.app
         cam = self.cam.scaled(width, height) if width else self.cam.scaled(ac.raycast_width, ac.raycast_height)
         pose_t = torch.as_tensor(np.asarray(pose, np.float32), device=self.device)
-        res = raycast.raycast(self.table, pose_t, cam, ac)
+        res = raycast.raycast(self.state.table, pose_t, cam, ac)
         self.splat_truncated = int(res.splat_truncated)
         return raycast.shade_preview(res).cpu().numpy()
 
@@ -695,7 +794,7 @@ class BundleFusion:
         poses, valid = self.current_poses()
         return PipelineOutputs(
             poses=poses, valid=valid, num_keyframes=self.num_keyframes,
-            tracking_lost_chunks=int(self.ctrl.lost_chunks),
+            tracking_lost_chunks=int(self.state.ctrl.lost_chunks),
         )
 
 

@@ -18,6 +18,13 @@ Data-safety invariants:
   * a streamed-in block whose key re-appeared on the device meanwhile is
     merged: sdf = (w_d*s_d + w_h*s_h)/(w_d+w_h), weights and colour
     accumulators add (the weighted-mean TSDF of two disjoint accumulations).
+
+The store can hold one key twice (a block evicted, re-allocated on the
+device while cold, and evicted again before a stream-in merged it). Where
+the JAX package scatters such a batch with duplicate indices, XLA writes
+them in order: the last copy's sdf and weight win and every copy's colour
+adds. The port writes the same, explicitly, because a CUDA indexed write
+with duplicate indices keeps an arbitrary one (:func:`last_of_each`).
 """
 
 from __future__ import annotations
@@ -26,10 +33,17 @@ import numpy as np
 import torch
 
 from ..config import AppConfig
-from ..utils.tensor_ops import top_k
+from ..utils.tensor_ops import deterministic, top_k
 from .blocks import BLOCK, INVALID_KEY, NVOX, BlockTable, allocate, block_origin, free_slots_by_mask, lookup, unpack_key
 
 _GROW = 4096  # host array growth quantum (rows)
+
+
+def last_of_each(keys: np.ndarray) -> np.ndarray:
+    """Ascending indices of the last occurrence of each distinct key: the
+    rows whose writes survive an in-order scatter with duplicate indices."""
+    _, first_rev = np.unique(keys[::-1], return_index=True)
+    return np.sort(len(keys) - 1 - first_rev)
 
 
 def _unpack_np(key: np.ndarray) -> np.ndarray:
@@ -242,7 +256,10 @@ def stream_in(
     w_h = torch.as_tensor(wgt, device=dev)
     s_h = torch.as_tensor(sdf, device=dev)
     w_sum = w_d + w_h
-    table.sdf[s] = torch.where(w_sum > 0, (w_d * s_d + w_h * s_h) / torch.clamp(w_sum, min=1e-9), 0.0)
-    table.weight[s] = w_sum
-    table.color[s] = table.color[s] + torch.as_tensor(col, device=dev)
+    sdf_m = torch.where(w_sum > 0, (w_d * s_d + w_h * s_h) / torch.clamp(w_sum, min=1e-9), 0.0)
+    last = torch.as_tensor(last_of_each(keys), device=dev)
+    table.sdf[s[last]] = sdf_m[last]
+    table.weight[s[last]] = w_sum[last]
+    with deterministic():  # duplicates add in row order
+        table.color.index_add_(0, s, torch.as_tensor(col, device=dev))
     return table, int(len(keys))

@@ -6,8 +6,12 @@ package holds each as a ``NamedTuple``; the port holds the same field names
 in dataclasses. :func:`state_from_numpy` builds the port's dataclass from any
 object with those fields (a JAX ``NamedTuple`` whose leaves convert with
 ``np.asarray``, or a dict by field name); :func:`state_to_numpy` returns
-nested dicts of numpy arrays. :func:`host_store_from` copies a host block
-store (the streaming layer's cold blocks). This module imports no JAX.
+nested dicts of numpy arrays. A sharded state (the JAX package's stacked
+``[D, ...]`` pytrees, e.g. ``ShardedOutputs.tables``) is a list of per-shard
+dataclasses in the port: :func:`stacked_from_numpy` and
+:func:`stacked_to_numpy` convert between the two. :func:`host_store_from`
+copies a host block store (the streaming layer's cold blocks). This module
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -57,6 +61,35 @@ def state_to_numpy(state) -> dict:
         val = getattr(state, f.name)
         out[f.name] = state_to_numpy(val) if dataclasses.is_dataclass(val) else val.detach().cpu().numpy()
     return out
+
+
+def _shard_of(obj, i: int):
+    """Shard ``i`` of a stacked state, as a dict by field name (nested)."""
+    if isinstance(obj, dict):
+        return {k: _shard_of(v, i) for k, v in obj.items()}
+    if hasattr(obj, "_fields"):  # a NamedTuple
+        return {k: _shard_of(getattr(obj, k), i) for k in obj._fields}
+    return np.asarray(obj)[i]
+
+
+def stacked_from_numpy(obj, devices, cls=None) -> list:
+    """A stacked state (leaves [D, ...]: a JAX ``NamedTuple`` or a dict by
+    field name) -> one port dataclass per shard, shard i on ``devices[i]``.
+    ``cls`` defaults to the port class of the same name as ``type(obj)``."""
+    cls = cls or STATE_CLASSES[type(obj).__name__]
+    return [state_from_numpy(_shard_of(obj, i), dev, cls) for i, dev in enumerate(devices)]
+
+
+def stacked_to_numpy(states: list) -> dict:
+    """Per-shard port states -> nested dict of stacked [D, ...] numpy arrays."""
+    parts = [state_to_numpy(s) for s in states]
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([x[k] for x in items]) for k in items[0]}
+        return np.stack(items)
+
+    return stack(parts)
 
 
 def host_store_from(store) -> HostBlockStore:

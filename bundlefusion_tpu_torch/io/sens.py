@@ -1,6 +1,7 @@
 """Reader/writer for the ScanNet/BundleFusion ``.sens`` container
 (port of ``bundlefusion_tpu.io.sens``, with its own copies of the pure-Python
-codecs of ``bundlefusion_tpu.io.native``; the C codecs are not ported).
+codecs of ``bundlefusion_tpu.io.native``; ``io/native.py`` binds the C
+codecs and falls back to these).
 
 Layout (little-endian), version 4 (the reference's ``sensorData.h``):
   u32 version
@@ -15,8 +16,10 @@ Layout (little-endian), version 4 (the reference's ``sensorData.h``):
     f32[16] cameraToWorld; u64 timestampColor, timestampDepth;
     u64 colorSizeBytes, depthSizeBytes; bytes...
 
-Depth decodes with ``zlib`` or the RVL codec below; JPEG/PNG colour needs
-PIL, imported only when such a file is read or written.
+Depth decodes with zlib or RVL through ``io/native.py`` (the C codec of
+``native/sensio.cpp`` where it builds, else ``zlib`` and the RVL codec
+below); JPEG/PNG colour needs PIL, imported only when such a file is read or
+written.
 """
 
 from __future__ import annotations
@@ -181,14 +184,17 @@ def rvl_decode(data: bytes, npix: int) -> np.ndarray:
 
 
 def decode_depth(header: SensHeader, frame: SensFrame) -> np.ndarray:
-    """Decode depth to float32 meters [H, W]."""
+    """Decode depth to float32 meters [H, W] (through the native codec
+    where it is built, ``io/native.py``)."""
+    from . import native
+
     h, w = header.depth_height, header.depth_width
     if header.depth_compression == "zlib_ushort":
-        d = np.frombuffer(zlib.decompress(frame.depth_bytes), dtype="<u2").reshape(h, w)
+        d = np.frombuffer(native.inflate(frame.depth_bytes, h * w * 2), dtype="<u2").reshape(h, w)
     elif header.depth_compression == "raw_ushort":
         d = np.frombuffer(frame.depth_bytes, dtype="<u2").reshape(h, w)
     elif header.depth_compression == "occi_ushort":  # RVL (ScanNet v2 style)
-        d = rvl_decode(frame.depth_bytes, h * w).reshape(h, w)
+        d = native.rvl_decode(frame.depth_bytes, h * w).reshape(h, w)
     else:
         raise NotImplementedError(header.depth_compression)
     return d.astype(np.float32) / header.depth_shift

@@ -160,7 +160,7 @@ class ProcessedFrames:
     points: torch.Tensor | None  # [N, H, W, 3]; None when geometry was not asked for
     normals: torch.Tensor | None  # [N, H, W, 3]; None likewise
     intensity: torch.Tensor  # [N, H, W]
-    color: torch.Tensor  # [N, 1, 1, 3] placeholder (nothing reads it)
+    color: torch.Tensor  # [N, H, W, 3] pass-through; [N, 1, 1, 3] placeholder from the luma wire
 
 
 def _preprocess_chain_torch(
@@ -262,6 +262,34 @@ def fused_preprocess(
 
 
 fused_preprocess.launches = 0
+
+
+def color_to_intensity(color: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] RGB -> [..., H, W] luminance (``convertColorToIntensityFloat``),
+    summed in channel order."""
+    return color[..., 0] * 0.299 + color[..., 1] * 0.587 + color[..., 2] * 0.114
+
+
+def preprocess_frames(
+    depth_raw: torch.Tensor,  # [N, H, W] f32 meters, or int16-stored uint16 mm wire
+    color: torch.Tensor,  # [N, H, W, 3] f32 in [0, 1], or the uint8 v1 wire
+    cam: CameraModel,
+    cache_cam: CameraModel,
+    sigma_d: float = 2.0,
+    sigma_r: float = 0.1,
+    filter_depth: bool = True,
+    geometry: bool = True,
+) -> tuple[ProcessedFrames, FrameCache]:
+    """Preprocess a frame batch from full RGB (the v1 wire): intensity is the
+    luminance of the float colour, which differs from the luma wire's 8-bit
+    Y by design. Depth is filtered by K2 as on the luma path."""
+    if depth_raw.dtype == torch.int16:
+        depth_raw = wire_depth_to_m(depth_raw)
+    if color.dtype == torch.uint8:
+        color = color.to(torch.float32) * (1.0 / 255.0)
+    return _preprocess_core(
+        depth_raw, color_to_intensity(color), color, cam, cache_cam, sigma_d, sigma_r, filter_depth, geometry
+    )
 
 
 def preprocess_frames_y(

@@ -14,8 +14,10 @@ exits non-zero; there is no CPU fallback):
                 the least time the card could take for the same work:
                 K1 over one flagship chunk's fuse (31 rows: 10 frames
                 de-integrated, then re-integrated at moved poses, and 11 new
-                frames integrated), K2 over a chunk's 11 frames with and
-                without the point and normal maps.
+                frames integrated), once with the v2 wire's half-res colour
+                and once with the v1 ring's full-res colour (bit-equal to the
+                twin); K2 over a chunk's 11 frames with and without the
+                point and normal maps.
   4. slice    — the flagship configuration of ``bench.py`` (640x480, 262,144
                 blocks, 1 cm voxels) on 66 rendered frames through
                 push_frame -> flush -> outputs: a warm pass, then a timed
@@ -34,7 +36,9 @@ exits non-zero; there is no CPU fallback):
                 fps, stream-in/out counts and seconds, the host syncs and the
                 chunks they occur at (streaming checks only), tracking, ATE,
                 and the streaming-aware mesh (extract_mesh seconds and
-                triangles; it must span the walked corridor).
+                triangles; it must span the walked corridor). Then two more
+                passes that digest the whole state after every stage of
+                every chunk: the digests and all three meshes must be equal.
   7. reloc    — the out-and-back orbit with the depth blacked out over four
                 frames, at 640x480 on the flagship configuration: a
                 relocalization, finalize()'s revalidation, valid frames after
@@ -44,9 +48,23 @@ exits non-zero; there is no CPU fallback):
                 --synthetic and --sens routes at 640x480 with the flagship
                 configuration: summary, mesh, trajectory, previews and
                 checkpoint, ATE <= 0.5 cm on both; render_preview at 320x240.
+  9. multiseq — the multi-sequence driver (``parallel/spmd_pipeline.py``) on
+                two flagship sequences of 66 frames (seeds 0 and 1) over a
+                2-shard mesh (both shards on cuda:0 with one card): fps over
+                both, every chunk valid, ATE <= 0.5 cm each, one K1 and one
+                K2 launch per shard and chunk, 0 host syncs in the chunk
+                rounds, peak memory; the app's --multiseq 2 route; 2 shards
+                at 128x96 on the CPU against the card.
+ 10. sharded  — phase 4's flagship pass with the global BA sharded over a
+                2-shard mesh: fps, ATE, validity and the largest pose gap
+                against phase 4's pass, global_solve time against phase 4's.
+ 11. configs  — the flagship pass with integrate_filtered_depth and with a
+                320x240 integration resolution (fps, ATE, blocks, launches);
+                the host time of the wire bilateral; the native .sens codecs
+                (built or not) against pure Python, with equal bytes.
 
-Phases 6-8 set the kernels' launch counts to 0 before their run and read
-them after it: each of their passes must launch both kernels. Small outputs
+Phases 6-11 set the kernels' launch counts to 0 before their run and read
+them after it: each of their paths must launch both kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
@@ -55,7 +73,9 @@ The last two lines are a JSON object of the kernels' checks and timings and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -65,12 +85,13 @@ import sys
 import time
 import traceback
 import warnings
+import zlib
 
 import numpy as np
 
 FLAGSHIP_FRAMES = 66
 SMALL = dict(width=128, height=96, frames=13)
-FULL = (640, 480)  # the flagship frame size of phases 6-8
+FULL = (640, 480)  # the flagship frame size of phases 6-11
 # phase 6: a corridor walk long enough that the default streaming check
 # (every 16 chunks) fires on its own (chunk 15 starts at frame 150), moving
 # 0.0125 m per frame (the JAX package's streaming test moves 0.031 m). The
@@ -86,6 +107,7 @@ FULL = (640, 480)  # the flagship frame size of phases 6-8
 # so that the whole corridor (~1.1 M triangles) is meshed.
 STREAM = dict(frames=241, x_span=3.0, streaming_radius=2.5, block_capacity=4480, mc_max_triangles=1 << 23)
 OUT_DIR = "chiprun_out"
+ATE_BAR = 0.005  # m, on the clean synthetic orbit at 640x480 (phases 9-11)
 KEEP_BYTES = 48 << 20  # larger app outputs are checked, then deleted
 
 # The least time the card could take (the larger of bytes over the memory
@@ -183,11 +205,12 @@ def kernel_entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, 
                 share_of_bound=bound_ms / ms, **extra)
 
 
-def check_k1(torch, T, dev, depth, c8, poses, cam):
+def check_k1(torch, T, dev, depth, c8, poses, cam, label="K1 tsdf_fuse"):
     """K1 over one flagship chunk's fuse, as plan_fuse builds it: the batch
     holds 11 new frames, then 10 frames integrated earlier; those 10 are
     de-integrated at their poses, then all 21 are integrated, the 10 at
-    moved poses (R = 31 rows)."""
+    moved poses (R = 31 rows). ``c8`` is the half-res colour of the v2 wire
+    or the full-res colour of the v1 ring (the multi-sequence driver's)."""
     from bundlefusion_tpu_torch.fusion import blocks, tsdf
 
     ac = flagship_config(T).app
@@ -238,7 +261,7 @@ def check_k1(torch, T, dev, depth, c8, poses, cam):
     h, w = depth.shape[1:]
     nbytes = live * 512 * 40 + n * (h * w * 4 + c8[0].numel()) + rows.masks.numel() * 9
     bound_ms, bound_by = bound(nbytes, applied * 512 * K1_FLOPS, applied * 512 * K1_MUFU)
-    phase("kernels", f"K1 tsdf_fuse: R={r} rows, union {live} live blocks of {union.shape[0]} entries, "
+    phase("kernels", f"{label}: colour {tuple(c8.shape[1:3])}, R={r} rows, union {live} live blocks of {union.shape[0]} entries, "
           f"{applied} applied (row, block) pairs; weights bit-equal, max |sdf/colour err| {err:.3g}, "
           f"integrate+deintegrate exact; kernel {ms:.4f} ms, with its work list and checks "
           f"{wrapper_ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -289,6 +312,7 @@ def check_k2(torch, T, dev, depth, cam):
 
 def check_kernels(torch, T, dev):
     """Phase 3: K1 and K2 against their twins at flagship shapes."""
+    from bundlefusion_tpu_torch.io import framewire
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
     from bundlefusion_tpu_torch.ops import preprocess as pp
 
@@ -300,6 +324,16 @@ def check_kernels(torch, T, dev):
     c8 = torch.as_tensor(np.stack([w[2] for w in wires]), device=dev)
     poses = torch.as_tensor(seq.poses, device=dev)
     k1 = check_k1(torch, T, dev, depth, c8, poses, seq.camera)
+    torch.cuda.empty_cache()
+    # the v1 ring's full-res colour (the multi-sequence driver's layout)
+    c8_full = torch.as_tensor(np.stack([framewire.frame_to_wire(seq.depth[i], seq.color[i])[1] for i in range(21)]),
+                              device=dev)
+    full = check_k1(torch, T, dev, depth, c8_full, poses, seq.camera, label="K1 tsdf_fuse, full-res colour")
+    if full["max_abs_err"] != 0.0:
+        raise AssertionError(f"K1 with full-res colour is not bit-equal to its twin: {full['max_abs_err']}")
+    k1["full_res_colour"] = {k: full[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "share_of_bound", "wrapper_ms")}
+    del c8_full
     torch.cuda.empty_cache()
     k2 = check_k2(torch, T, dev, depth[:11].contiguous(), seq.camera)
     return [k1, k2]
@@ -348,7 +382,7 @@ def run_slice(torch, T, dev, kernels_out):
     recs = [r for r in bf.runlog.records if "chunk" in r]
     phase("slice", f"flagship 640x480, {FLAGSHIP_FRAMES} frames: {FLAGSHIP_FRAMES / dt:.3f} fps "
           f"({dt:.3f} s, push_frame -> flush), ATE {ate * 100:.4f} cm, keyframes {out.num_keyframes}, "
-          f"active blocks {int(bf.table.num_active())}, peak memory "
+          f"active blocks {int(bf.state.table.num_active())}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     phase("slice", "stage timing (CUDA events):\n" + bf.timing.report())
     ints = ("num_keys", "filtered_matches", "pairs_valid", "corr_cursor", "alloc_overflow", "upd_truncated",
@@ -364,6 +398,8 @@ def run_slice(torch, T, dev, kernels_out):
         raise AssertionError(f"flagship ATE {ate * 100:.4f} cm > 0.5 cm")
     if any(r["patch_overflow"] for r in recs):
         raise AssertionError("patch_overflow is not 0")
+    ref = dict(poses=out.poses, valid=out.valid, fps=FLAGSHIP_FRAMES / dt,
+               global_solve_ms=bf.timing.summary()["global_solve"]["mean_ms"])
     del bf
 
     # small configuration: CPU (twins) vs card (kernels), and card determinism
@@ -385,11 +421,11 @@ def run_slice(torch, T, dev, kernels_out):
     pose_err = float(np.abs(cpu_out.poses - o1.poses).max())
     if pose_err > 1e-4:
         raise AssertionError(f"CPU and card poses differ by {pose_err}")
-    if not (np.array_equal(o1.poses, o2.poses) and torch.equal(g1.table.weight, g2.table.weight)):
+    if not (np.array_equal(o1.poses, o2.poses) and torch.equal(g1.state.table.weight, g2.state.table.weight)):
         raise AssertionError("two card runs are not bit-identical")
     phase("slice", f"small {SMALL['width']}x{SMALL['height']}, {SMALL['frames']} frames: masks equal "
           f"{masks(g1)}, max |pose cpu - card| {pose_err:.3g}; two card runs bit-identical")
-    return seq, cfg
+    return seq, cfg, ref
 
 
 def reset_launches() -> None:
@@ -491,6 +527,93 @@ def read_ply_header(path: str) -> tuple[int, int]:
     return nv, nf
 
 
+def tensor_digest(torch, t) -> int:
+    """An order-sensitive digest of a tensor's bytes, computed on its device:
+    the sum of each element's bits (as an integer) times a position weight,
+    in int64 arithmetic that wraps, so the sum's order cannot change it."""
+    x = t.detach().contiguous().reshape(-1)
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    v = x.view(ints).to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 65521 + 1
+    return int((v * w).sum())
+
+
+def state_digests(torch, bf, extra=None) -> dict[str, object]:
+    """Digests of every tensor of a pipeline's device state (graph, control,
+    trajectory, block table, update records, per-chunk stores, runlog) and
+    of its host block store; ``extra`` adds a stage's own outputs."""
+    out = {}
+
+    def walk(prefix, obj):
+        if dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                walk(f"{prefix}.{f.name}", getattr(obj, f.name))
+        elif isinstance(obj, torch.Tensor):
+            out[prefix] = tensor_digest(torch, obj)
+
+    walk("state", bf.state)
+    for name, obj in (extra or {}).items():
+        walk(name, obj)
+    st = bf.block_store
+    h = hashlib.blake2b()
+    for a in (st._keys, st._sdf, st._wgt, st._col, np.asarray(st._free, np.int64)):
+        h.update(np.ascontiguousarray(a).tobytes())
+    h.update(repr(sorted((k, tuple(v)) for k, v in st._chunks.items())).encode())
+    out["block_store"] = h.hexdigest()
+    return out
+
+
+def digest_run(torch, T, seq, cfg, dev):
+    """One pass over ``seq`` that records, after every stage of every chunk,
+    the digests of the whole state (the chunk step's result too, after
+    chunk_local). Returns ([(chunk, stage, digests)], pipeline). The
+    digests read the device, so such a pass is neither timed nor counted."""
+    from bundlefusion_tpu_torch.bundle import chunk as chunk_mod
+    from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
+
+    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev)
+    recs, last = [], {}
+    stage_of = bf.timing.stage
+    process_chunk = chunk_mod.process_chunk
+
+    def captured(*a, **k):
+        last["chunk_result"] = process_chunk(*a, **k)
+        return last["chunk_result"]
+
+    @contextlib.contextmanager
+    def stage(name):
+        with stage_of(name):
+            yield
+        extra = {"chunk_result": last.pop("chunk_result")} if name == "chunk_local" else None
+        recs.append((bf.chunk_count, name, state_digests(torch, bf, extra)))
+
+    bf.timing.stage = stage
+    chunk_mod.process_chunk = captured
+    try:
+        for i in range(len(seq.poses)):
+            bf.push_frame(seq.depth[i], seq.color[i])
+        bf.flush()
+    finally:
+        chunk_mod.process_chunk = process_chunk
+    return recs, bf
+
+
+def first_difference(a, b):
+    """(chunk, stage, differing fields) of the first stage at which two
+    digest records differ, or None."""
+    if len(a) != len(b):
+        return (None, f"{len(a)} against {len(b)} stages", [])
+    for (ca, sa, da), (cb, sb, db) in zip(a, b):
+        if (ca, sa) != (cb, sb):
+            return (ca, f"stage order {sa} / {sb}", [])
+        diff = sorted(k for k in da if da[k] != db.get(k))
+        if diff:
+            return (ca, sa, diff)
+    return None
+
+
 def run_stream(torch, T, dev, kernels_out) -> None:
     """Phase 6: out-of-core streaming with the default check schedule."""
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
@@ -529,10 +652,10 @@ def run_stream(torch, T, dev, kernels_out) -> None:
     chunks = [r for r in bf.runlog.records if "chunk_valid" in r]
     st = bf.timing.summary().get("streaming", {"count": 0, "total_s": 0.0, "max_ms": 0.0})
     n_in, n_out = sum(r["stream_in"] for r in recs), sum(r["stream_out"] for r in recs)
-    device_blocks, host_blocks = int(bf.table.num_active()), len(bf.block_store)
+    device_blocks, host_blocks = int(bf.state.table.num_active()), len(bf.block_store)
     # distinct blocks of the scene: the device's and the host store's keys
     # (a block re-allocated while cold is in both until a stream-in merges it)
-    keys = [bf.table.keys[bf.table.keys != INVALID_KEY].cpu().numpy()]
+    keys = [bf.state.table.keys[bf.state.table.keys != INVALID_KEY].cpu().numpy()]
     keys += [k for k, _, _, _ in bf.block_store.snapshot_batches(4096)]
     distinct = len(np.unique(np.concatenate(keys)))
     ate = ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
@@ -575,6 +698,20 @@ def run_stream(torch, T, dev, kernels_out) -> None:
           f"blocks), x from {x_lo:.3f} to {x_hi:.3f} m; {path} ({os.path.getsize(path) / 2**20:.1f} MiB)")
     if nf != len(faces) or not (x_lo < 0.3 and x_hi > STREAM["x_span"] + 1.0):
         raise AssertionError(f"the mesh does not span the walked corridor: x {x_lo:.3f}..{x_hi:.3f}, {nf} faces")
+    del bf
+
+    # determinism: two more passes, each digesting the whole state after
+    # every stage of every chunk; then their meshes against the first pass's
+    t0 = time.perf_counter()
+    (ra, ba), (rb, bb) = digest_run(torch, T, seq, cfg, dev), digest_run(torch, T, seq, cfg, dev)
+    diff = first_difference(ra, rb)
+    meshes = [bx.extract_mesh() for bx in (ba, bb)]
+    same_mesh = [all(np.array_equal(x, y) for x, y in zip(m, (verts, cols, faces))) for m in meshes]
+    phase("stream", f"determinism: two digested passes ({time.perf_counter() - t0:.1f} s), {len(ra)} stages "
+          f"compared; first difference (chunk, stage, fields): {diff}; meshes {[len(m[2]) for m in meshes]} "
+          f"triangles, equal to the timed pass's {same_mesh}")
+    if diff is not None or not all(same_mesh):
+        raise AssertionError(f"the corridor is not deterministic: first difference {diff}, meshes equal {same_mesh}")
 
 
 def blackout_sequence(w: int, h: int, dev, num_frames: int = 41):
@@ -607,7 +744,7 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
     t_fin = time.perf_counter() - t0
     launches = read_launches()
     record_launches(kernels_out, "reloc", launches)
-    reloc = int(bf.ctrl.reloc_events)
+    reloc = int(bf.state.ctrl.reloc_events)
     valid = out.valid
     cut = 30  # the first chunk after the blackout starts at frame 30 (submap 10)
     sel = valid.copy()
@@ -615,7 +752,7 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
     ate_tail = ate_rmse(out.poses, seq.poses[: len(out.poses)], valid=sel)
     phase("reloc", f"{FULL[0]}x{FULL[1]}, {len(seq.poses)} frames, depth blacked out at 20..23: {dt:.3f} s push_frame -> flush, "
           f"finalize {t_fin:.3f} s; relocalizations {reloc}, keyframes valid "
-          f"{bf.graph.valid[: bf.num_keyframes].cpu().numpy().astype(int).tolist()}, frames valid "
+          f"{bf.state.graph.valid[: bf.num_keyframes].cpu().numpy().astype(int).tolist()}, frames valid "
           f"{''.join('1' if v else '0' for v in valid)}; post-cut ATE {ate_tail * 100:.4f} cm; launches {launches}")
     if reloc < 1 or not valid[cut:].all() or not ate_tail < 0.04:
         raise AssertionError(f"relocalization: events {reloc}, valid after the cut {valid[cut:].tolist()}, "
@@ -630,10 +767,10 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
         runs[str(d)] = (b, b.outputs())
     (cb, co), (gb, go) = runs["cpu"], runs[str(dev)]
     err = float(np.abs(co.poses - go.poses).max())
-    phase("reloc", f"128x96 on the CPU and on the card: relocalizations {int(cb.ctrl.reloc_events)} / "
-          f"{int(gb.ctrl.reloc_events)}, valid masks equal {np.array_equal(co.valid, go.valid)}, "
+    phase("reloc", f"128x96 on the CPU and on the card: relocalizations {int(cb.state.ctrl.reloc_events)} / "
+          f"{int(gb.state.ctrl.reloc_events)}, valid masks equal {np.array_equal(co.valid, go.valid)}, "
           f"max |pose cpu - card| {err:.3g}")
-    if not np.array_equal(co.valid, go.valid) or err > 1e-4 or int(gb.ctrl.reloc_events) < 1:
+    if not np.array_equal(co.valid, go.valid) or err > 1e-4 or int(gb.state.ctrl.reloc_events) < 1:
         raise AssertionError(f"128x96 relocalization: CPU and card differ (pose error {err})")
 
 
@@ -648,12 +785,7 @@ def run_app(torch, T, dev, kernels_out) -> None:
     root = os.path.join(OUT_DIR, "app")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    app_json, bundling_json = os.path.join(root, "app.json"), os.path.join(root, "bundling.json")
-    with open(app_json, "w") as f:
-        json.dump(dataclasses.asdict(cfg.app), f)
-    with open(bundling_json, "w") as f:
-        json.dump(dataclasses.asdict(cfg.bundling), f)
-    common = ["--app-config", app_json, "--bundling-config", bundling_json, "--device", str(dev)]
+    common = [*write_config_json(cfg, root), "--device", str(dev)]
     n = FLAGSHIP_FRAMES
     routes = {}
     reset_launches()
@@ -698,7 +830,7 @@ def run_app(torch, T, dev, kernels_out) -> None:
     chunks = max(c for c in done if c and c % 3 == 0)
     ck = os.path.join(synth, "checkpoint.pkl")
     bf = load_checkpoint(ck, device=dev)
-    phase("app", f"checkpoint: {bf.chunk_count} chunks, {bf.num_frames} frames, {int(bf.table.num_active())} "
+    phase("app", f"checkpoint: {bf.chunk_count} chunks, {bf.num_frames} frames, {int(bf.state.table.num_active())} "
           f"blocks restored; {keep_or_drop(ck)}")
     if bf.chunk_count != chunks or bf.num_frames != s * chunks + 1:
         problems.append(f"checkpoint holds {bf.chunk_count} chunks / {bf.num_frames} frames, not {chunks}")
@@ -719,6 +851,192 @@ def run_app(torch, T, dev, kernels_out) -> None:
         problems.append(f"render_preview gave {img.shape}")
     if problems:
         raise AssertionError("; ".join(problems))
+
+
+def run_multiseq(torch, T, dev, kernels_out, ref) -> None:
+    """Phase 9: the multi-sequence driver on 2 flagship sequences over a
+    2-shard mesh, then the app's --multiseq route, then 2 shards at 128x96
+    on the CPU against the card."""
+    from bundlefusion_tpu_torch import app
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+    from bundlefusion_tpu_torch.io.synthetic import generate_sequence
+    from bundlefusion_tpu_torch.parallel.mesh import make_mesh
+    from bundlefusion_tpu_torch.parallel.spmd_pipeline import ShardedRun, extract_mesh_for, run_sequences_sharded
+
+    cfg = flagship_config(T)
+    seqs = [generate_sequence(FLAGSHIP_FRAMES, *FULL, seed=s, radius=0.5, device=dev) for s in (0, 1)]
+    mesh = make_mesh(2, "cuda")
+    phase("multiseq", f"mesh {mesh!r}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = ShardedRun(seqs, mesh, cfg, anchor_poses=np.stack([s.poses[0] for s in seqs]))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    sites = sync_sites(torch, lambda: [run.step(c) for c in range(run.n_chunks)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    record_launches(kernels_out, "multiseq", launches)
+    out = run.outputs()
+    n_out = out.poses.shape[1]
+    ates = [ate_rmse(out.poses[i], seqs[i].poses[:n_out], valid=out.valid[i]) for i in range(2)]
+    chunk_valid = out.runlogs[..., 0].astype(bool)
+    phase("multiseq", f"2 flagship sequences x {run.n_chunks} chunks ({n_out} frames each): {2 * n_out / dt:.3f} fps "
+          f"over both ({dt:.3f} s for the chunk rounds; wire conversion and state {t_setup:.2f} s); phase 4's "
+          f"serial pass {ref['fps']:.3f} fps; ATE {ates[0] * 100:.4f} / {ates[1] * 100:.4f} cm; chunks valid "
+          f"{chunk_valid.astype(int).tolist()}; launches {launches}; {len(sites)} host syncs; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    per_shard_chunk = 2 * run.n_chunks
+    if launches["tsdf_integrate"] != per_shard_chunk or launches["preprocess"] != per_shard_chunk:
+        raise AssertionError(f"expected one K1 and one K2 launch per shard and chunk: {launches}")
+    if not chunk_valid.all() or not out.valid.all() or max(ates) > ATE_BAR:
+        raise AssertionError(f"multiseq: chunks valid {chunk_valid.tolist()}, ATE {ates}")
+    if sites:
+        raise AssertionError(f"host syncs in the sharded driver's steady state: {sorted(set(sites))}")
+    verts, _, faces = extract_mesh_for(out, 0, cfg)
+    phase("multiseq", f"sequence 0 meshes to {len(faces)} triangles")
+    del run, out, verts, faces
+
+    root = os.path.join(OUT_DIR, "app_multiseq")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cfg_args = write_config_json(cfg, root)
+    reset_launches()
+    t0 = time.perf_counter()
+    app.main(["--synthetic", str(FLAGSHIP_FRAMES), "--width", str(FULL[0]), "--height", str(FULL[1]),
+              "--multiseq", "2", "--out", root, *cfg_args, "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    record_launches(kernels_out, "app_multiseq", read_launches())
+    with open(os.path.join(root, "summary.json")) as f:
+        summary = json.load(f)
+    nv, nf = read_ply_header(os.path.join(root, "mesh_0.ply"))
+    phase("multiseq", f"app --multiseq 2: {secs:.2f} s; {summary['mesh']}; ATE (m) {summary['ate_rmse_m']}; "
+          f"{nf} triangles; {keep_or_drop(os.path.join(root, 'mesh_0.ply'))}")
+    if max(summary["ate_rmse_m"].values()) > ATE_BAR or nf != summary["mesh_triangles"] or nf == 0:
+        raise AssertionError(f"app --multiseq: bad outputs {summary}")
+
+    scfg = small_config(T)
+    sseqs = [generate_sequence(SMALL["frames"], SMALL["width"], SMALL["height"], seed=s, device=dev) for s in (0, 1)]
+    anchors = np.stack([s.poses[0] for s in sseqs])
+    cpu = run_sequences_sharded(sseqs, make_mesh(2, "cpu"), scfg, anchor_poses=anchors)
+    gpu = run_sequences_sharded(sseqs, mesh, scfg, anchor_poses=anchors)
+    err = float(np.abs(cpu.poses - gpu.poses).max())
+    phase("multiseq", f"128x96, 2 shards, CPU against the card: validity equal {np.array_equal(cpu.valid, gpu.valid)}, "
+          f"max |pose cpu - card| {err:.3g}")
+    if not np.array_equal(cpu.valid, gpu.valid) or err > 2e-5:
+        raise AssertionError(f"sharded driver: CPU and card differ (pose error {err})")
+
+
+def write_config_json(cfg, root: str) -> list[str]:
+    """The configuration as the app's two JSON files; returns their flags."""
+    paths = []
+    for name, part in (("app.json", cfg.app), ("bundling.json", cfg.bundling)):
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            json.dump(dataclasses.asdict(part), f)
+    return ["--app-config", paths[0], "--bundling-config", paths[1]]
+
+
+def run_sharded(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
+    """Phase 10: the serial flagship pipeline with its global BA sharded over
+    a 2-shard mesh, against phase 4's unsharded pass."""
+    from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+    from bundlefusion_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, "cuda")
+    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], mesh=mesh, device=dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+
+    def steady():
+        for i in range(len(seq.poses)):
+            bf.push_frame(seq.depth[i], seq.color[i])
+        bf.flush()
+
+    sites = sync_sites(torch, steady)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    record_launches(kernels_out, "sharded", launches)
+    out = bf.outputs()
+    n = min(len(out.poses), len(seq.poses))
+    ate = ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
+    gap = float(np.abs(out.poses - ref["poses"]).max())
+    gs = bf.timing.summary()["global_solve"]
+    phase("sharded", f"{mesh!r}: {FLAGSHIP_FRAMES / dt:.3f} fps (phase 4: {ref['fps']:.3f}); ATE {ate * 100:.4f} cm; "
+          f"max |pose - phase 4's| {gap:.3g}; validity equal {np.array_equal(out.valid, ref['valid'])}; "
+          f"global_solve {gs['mean_ms']:.2f} ms per chunk (phase 4: {ref['global_solve_ms']:.2f}); launches "
+          f"{launches}; {len(sites)} host syncs")
+    phase("sharded", "stage timing (CUDA events):\n" + bf.timing.report())
+    if ate > ATE_BAR or not np.array_equal(out.valid, ref["valid"]):
+        raise AssertionError(f"sharded pipeline: ATE {ate}, validity equal {np.array_equal(out.valid, ref['valid'])}")
+
+
+def run_configs(torch, T, dev, kernels_out, seq, ref) -> None:
+    """Phase 11: the flagship pass with filtered-depth integration and with a
+    320x240 integration resolution; the host cost of the wire bilateral; the
+    native .sens codecs against pure Python."""
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+    from bundlefusion_tpu_torch.io import framewire, native, sens
+
+    base = flagship_config(T)
+    wi, hi = FULL[0] // 2, FULL[1] // 2
+    settings = {
+        "filtered_depth": dict(integrate_filtered_depth=True),
+        f"integration_{wi}x{hi}": dict(integration_width=wi, integration_height=hi),
+    }
+    for name, change in settings.items():
+        cfg = dataclasses.replace(base, app=dataclasses.replace(base.app, **change))
+        reset_launches()
+        bf, dt = run_pass(T, seq, cfg, dev)
+        launches = read_launches()
+        record_launches(kernels_out, name, launches)
+        out = bf.outputs()
+        n = min(len(out.poses), len(seq.poses))
+        ate = ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
+        recs = [r for r in bf.runlog.records if "chunk" in r]
+        phase("configs", f"{name}: {FLAGSHIP_FRAMES / dt:.3f} fps (phase 4: {ref['fps']:.3f}); ATE {ate * 100:.4f} cm; "
+              f"blocks {int(bf.state.table.num_active())}; ring {tuple(bf.state.hist_d16.shape[1:])}; "
+              f"launches {launches} over {len(recs)} chunks")
+        if ate > ATE_BAR or not all(r["chunk_valid"] for r in recs) or launches["tsdf_integrate"] != len(recs) \
+                or launches["preprocess"] != len(recs):
+            raise AssertionError(f"{name}: ATE {ate}, launches {launches}")
+        del bf
+
+    ac = base.app
+    d16 = framewire.frame_to_wire(seq.depth[0], seq.color[0])[0]
+    framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
+        times.append(time.perf_counter() - t0)
+    phase("configs", f"bilateral_wire on the host: {statistics.median(times) * 1e3:.2f} ms per {FULL[0]}x{FULL[1]} frame "
+          f"(median of 5)")
+
+    have = native.have_native()
+    enc = sens.rvl_encode(d16)
+    z = native.deflate(d16.tobytes())
+    dec_t, ok = {}, True
+    for label, rvl, inflate in (("native", native.rvl_decode, native.inflate),
+                                ("python", sens.rvl_decode, lambda b, n: zlib.decompress(b))):
+        t0 = time.perf_counter()
+        r = rvl(enc, d16.size)
+        t1 = time.perf_counter()
+        zz = inflate(z, d16.nbytes)
+        t2 = time.perf_counter()
+        dec_t[label] = (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+        ok = ok and r.tobytes() == d16.tobytes() and zz == d16.tobytes()
+    phase("configs", f"native codecs built: {have} ({native.LIB_PATH}); one {FULL[0]}x{FULL[1]} depth frame, RVL / zlib decode "
+          f"ms: native {dec_t['native'][0]:.3f} / {dec_t['native'][1]:.3f}, pure Python {dec_t['python'][0]:.3f} / "
+          f"{dec_t['python'][1]:.3f}; equal bytes {ok}")
+    if not have or not ok or native.rvl_encode(d16) != enc:
+        raise AssertionError(f"native codecs: built {have}, equal bytes {ok}")
 
 
 def main() -> int:
@@ -746,13 +1064,15 @@ def main() -> int:
         return out
 
     kern = timed("kernels", check_kernels, torch, T, dev)
-    seq, cfg = timed("slice", run_slice, torch, T, dev, kern)
+    seq, cfg, ref = timed("slice", run_slice, torch, T, dev, kern)
     timed("syncs", count_syncs, torch, T, seq, cfg, dev)
-    del seq
     torch.cuda.empty_cache()
     timed("stream", run_stream, torch, T, dev, kern)
     timed("reloc", run_reloc, torch, T, dev, kern)
     timed("app", run_app, torch, T, dev, kern)
+    timed("multiseq", run_multiseq, torch, T, dev, kern, ref)
+    timed("sharded", run_sharded, torch, T, dev, kern, seq, cfg, ref)
+    timed("configs", run_configs, torch, T, dev, kern, seq, ref)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

@@ -151,20 +151,21 @@ def test_checkpoint_restores_the_state_and_keeps_consuming_frames(tmp_path, seq,
     path = str(tmp_path / "ck.pkl")
     save_checkpoint(a, path)
     b = load_checkpoint(path, device="cpu")
+    sa, sb = a.state, b.state
     for name in ("graph", "traj", "ctrl"):
-        for x, y in zip(_leaves(interop.state_to_numpy(getattr(a, name))),
-                        _leaves(interop.state_to_numpy(getattr(b, name)))):
+        for x, y in zip(_leaves(interop.state_to_numpy(getattr(sa, name))),
+                        _leaves(interop.state_to_numpy(getattr(sb, name)))):
             assert np.array_equal(x, y), name
-    for name in ("_ring_frame", "_local_traj_dev", "_chunk_valid_dev", "_runlog_dev", "blocks_updated",
-                 "_gc_freed_total"):
-        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    for name in ("anchor", "ring_frame", "local_trajs", "chunk_valid", "runlog_rows", "blocks_updated",
+                 "gc_freed_total"):
+        assert torch.equal(getattr(sa, name), getattr(sb, name)), name
     # the pools, the ring and the update records carry one scratch row past
     # the end that masked writes land in; it is never read and not saved
     for name in ("sdf", "weight", "color", "keys", "slot_of", "key_of_slot"):
-        x, y = getattr(a.table, name), getattr(b.table, name)
-        assert torch.equal(x[: a.table.capacity], y[: a.table.capacity]), name
-    for name in ("_hist_d16", "_hist_c8", "_upd_masks", "_upd_keys"):
-        assert torch.equal(getattr(a, name)[:-1], getattr(b, name)[:-1]), name
+        x, y = getattr(sa.table, name), getattr(sb.table, name)
+        assert torch.equal(x[: sa.table.capacity], y[: sa.table.capacity]), name
+    for name in ("hist_d16", "hist_c8", "upd_masks", "upd_keys"):
+        assert torch.equal(getattr(sa, name)[:-1], getattr(sb, name)[:-1]), name
     assert (b.chunk_count, b.num_frames, b._next_fid, len(b._pending)) == (a.chunk_count, a.num_frames, 7, 3)
     for i in range(7, N):
         b.push_frame(seq.depth[i], seq.color[i])
@@ -172,7 +173,7 @@ def test_checkpoint_restores_the_state_and_keeps_consuming_frames(tmp_path, seq,
     ob = b.outputs()
     assert np.array_equal(ob.poses, np.load(port_out / "trajectory.npy"))
     assert np.array_equal(ob.valid, np.load(port_out / "trajectory_valid.npy"))
-    assert int(b.table.num_active()) == json.loads((port_out / "summary.json").read_text())["active_blocks"]
+    assert int(sb.table.num_active()) == json.loads((port_out / "summary.json").read_text())["active_blocks"]
 
 
 def _leaves(d):
@@ -190,7 +191,3 @@ def test_tum_trajectory_writer_matches_jax(tmp_path, seq):
     app.write_tum_trajectory(str(tmp_path / "t.txt"), poses, valid)
     assert (tmp_path / "j.txt").read_bytes() == (tmp_path / "t.txt").read_bytes()
 
-
-def test_multiseq_is_not_ported(tmp_path, cfg_args):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        app.main(["--synthetic", "5", "--multiseq", "2", "--out", str(tmp_path), *cfg_args])

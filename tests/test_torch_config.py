@@ -10,11 +10,23 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import bundlefusion_tpu.config as jcfg
 import bundlefusion_tpu_torch.config as tcfg
 from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 from bundlefusion_tpu_torch.geometry.camera import CameraModel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test files at once, one per CPU; PyTorch's
+    own thread pool per process would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -62,21 +74,31 @@ def _cam(w=64, h=48):
 
 
 @pytest.mark.parametrize(
-    "app_change,bundling_change",
+    "app_change,shards,match",
     [
-        (dict(integrate_filtered_depth=True), {}),
-        (dict(integration_width=32, integration_height=24), {}),
+        # an integration resolution must integer-divide the input resolution
+        (dict(integration_width=48, integration_height=36), 0, "integer-divide"),
+        # a mesh's shard count must divide the 6 x max_num_images system rows
+        ({}, 5, "192 rows"),
     ],
 )
-def test_unported_settings_are_rejected(app_change, bundling_change):
+def test_settings_that_cannot_run_are_rejected(app_change, shards, match):
+    from bundlefusion_tpu_torch.parallel.mesh import make_mesh
+
     c = tcfg.tiny_test_config()
-    c = dataclasses.replace(
-        c,
-        app=dataclasses.replace(c.app, **app_change),
-        bundling=dataclasses.replace(c.bundling, **bundling_change),
-    )
-    with pytest.raises(NotImplementedError):
-        BundleFusion(_cam(), c, device="cpu")
+    c = dataclasses.replace(c, app=dataclasses.replace(c.app, **app_change))
+    with pytest.raises(ValueError, match=match):
+        BundleFusion(_cam(), c, mesh=make_mesh(shards, "cpu") if shards else None, device="cpu")
+
+
+def test_mesh_on_another_device_type_is_rejected():
+    """The sharded solve copies the pipeline's tensors to the mesh's devices
+    without waiting: between a card and the CPU that copy could be read
+    before it lands, so a mesh must hold devices of the pipeline's type."""
+    from bundlefusion_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(ValueError, match="must be cpu devices"):
+        BundleFusion(_cam(), tcfg.tiny_test_config(), mesh=make_mesh(2, "cuda:0"), device="cpu")
 
 
 def test_streaming_check_runs_where_it_fires():
@@ -100,7 +122,3 @@ def test_streaming_check_runs_where_it_fires():
     assert calls == [2, 5, 6, 7]
     assert tcfg.AppConfig().streaming_check_every == 16
 
-
-def test_mesh_is_rejected():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        BundleFusion(_cam(), tcfg.tiny_test_config(), mesh=object(), device="cpu")

@@ -33,6 +33,16 @@ EXACT = ("chunk_valid", "kf_valid", "reloc", "tracking_lost", "num_keys", "patch
 WITHIN_1PCT = ("filtered_matches", "blocks_touched", "active_blocks", "corr_cursor")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several test files at once, one per CPU; PyTorch's
+    own thread pool per process would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(tiny, **app):
     c = tiny()
     a = dataclasses.replace(c.app, input_width=W, input_height=H, integration_width=W,
@@ -88,16 +98,16 @@ def test_poses_and_ate_match_jax(runs):
 def test_tsdf_matches_jax(runs):
     _, (bj, _), (bt, _) = runs
     kj = set(np.asarray(bj.table.keys).tolist())
-    kt = set(bt.table.keys.numpy().tolist())
+    kt = set(bt.state.table.keys.numpy().tolist())
     print(f"block key sets: symmetric difference {len(kj ^ kt)} of {len(kj)}")
     assert len(kj ^ kt) <= 0.01 * len(kj)
     wj = float(np.asarray(bj.table.weight, np.float64).sum())
-    wt = float(bt.table.weight.double().sum())
+    wt = float(bt.state.table.weight.double().sum())
     print(f"TSDF weight sum jax {wj}, port {wt}")
     assert abs(wj - wt) <= 1e-3 * wj
     tj = interop.state_from_numpy(bj.traj, "cpu")
-    assert torch.equal(tj.integrated, bt.traj.integrated)
-    assert torch.equal(tj.opt_valid, bt.traj.opt_valid)
+    assert torch.equal(tj.integrated, bt.state.traj.integrated)
+    assert torch.equal(tj.opt_valid, bt.state.traj.opt_valid)
 
 
 def test_trajectory_plan_matches_jax():
@@ -129,21 +139,22 @@ def test_ring_spilled_frames_are_reintegrated():
     seq = cached_sequence(21, width=W, height=H)
     cfg = _cfg(t_tiny, history_ring_frames=6)
     bf, _ = port_run(Replayer(SyntheticSource(seq), batch_size=4), cfg, anchor_pose=seq.poses[0], device="cpu")
-    assert int(bf._ring_frame[0]) != 0 and bool(bf.traj.integrated[0])
-    shifted = bf.traj.integrated_pose[0].clone()
+    st = bf.state
+    assert int(st.ring_frame[0]) != 0 and bool(st.traj.integrated[0])
+    shifted = st.traj.integrated_pose[0].clone()
     shifted[0, 3] += 0.05
-    bf.traj = ttraj.update_optimized(bf.traj, torch.tensor([0]), shifted[None], torch.tensor([True]))
+    st.traj = ttraj.update_optimized(st.traj, torch.tensor([0]), shifted[None], torch.tensor([True]))
     uploads = bf._ring_uploads
     assert bf._service_reintegration(max_rounds=1) >= 1
     assert bf._ring_uploads > uploads
-    torch.testing.assert_close(bf.traj.integrated_pose[0], shifted, atol=1e-6, rtol=0)
+    torch.testing.assert_close(st.traj.integrated_pose[0], shifted, atol=1e-6, rtol=0)
     # invalidate frame 2: de-integrated; revalidate: integrated again
-    bf.traj = dataclasses.replace(bf.traj, opt_valid=bf.traj.opt_valid.clone().index_fill_(0, torch.tensor([2]), False))
+    st.traj = dataclasses.replace(st.traj, opt_valid=st.traj.opt_valid.clone().index_fill_(0, torch.tensor([2]), False))
     bf._service_reintegration(max_rounds=1)
-    assert not bool(bf.traj.integrated[2])
-    bf.traj = dataclasses.replace(bf.traj, opt_valid=bf.traj.opt_valid.clone().index_fill_(0, torch.tensor([2]), True))
+    assert not bool(st.traj.integrated[2])
+    st.traj = dataclasses.replace(st.traj, opt_valid=st.traj.opt_valid.clone().index_fill_(0, torch.tensor([2]), True))
     bf._service_reintegration(max_rounds=1)
-    assert bool(bf.traj.integrated[2])
+    assert bool(st.traj.integrated[2])
 
 
 def test_steady_state_reads_nothing_back(monkeypatch):

@@ -61,9 +61,14 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _state(bf):
+    """Where each side keeps its device state (graph, trajectory)."""
+    return bf.state if isinstance(bf, PortBF) else bf
+
+
 def _invalidate(bf, k):
     if isinstance(bf, PortBF):
-        bf.graph.valid[k] = False
+        bf.state.graph.valid[k] = False
     else:
         bf.graph = bf.graph._replace(valid=bf.graph.valid.at[k].set(False))
 
@@ -86,17 +91,18 @@ def scenario():
             bf.flush()
             s = bf.S
             frames = np.arange(2 * s + 1, 3 * s)
-            o = obs[name] = {"frames": frames, "integrated0": _np(bf.traj.integrated)[frames].copy()}
+            st = _state(bf)
+            o = obs[name] = {"frames": frames, "integrated0": _np(st.traj.integrated)[frames].copy()}
             _invalidate(bf, K)
             bf._publish_trajectory()
             bf._service_reintegration()
-            o["integrated1"] = _np(bf.traj.integrated)[frames].copy()
+            o["integrated1"] = _np(st.traj.integrated)[frames].copy()
             o["n_re"] = bf._revalidate_stale()
-            o["valid"] = _np(bf.graph.valid).copy()
-            o["poses"] = _np(bf.graph.poses).copy()
+            o["valid"] = _np(st.graph.valid).copy()
+            o["poses"] = _np(st.graph.poses).copy()
             bf._publish_trajectory()
             bf._service_reintegration()
-            o["integrated2"] = _np(bf.traj.integrated).copy()
+            o["integrated2"] = _np(st.traj.integrated).copy()
             o["bf"] = bf
     finally:
         mp.undo()
@@ -164,7 +170,7 @@ def test_finalize_after_relocalization_with_periodic_revalidation():
     cfg = _cfg(t_tiny, revalidate_every_chunks=2)
     bf, out = port_run(Replayer(SyntheticSource(seq._replace(depth=depth)), batch_size=8), cfg,
                        anchor_pose=seq.poses[0], device="cpu")
-    reloc = int(bf.ctrl.reloc_events)
+    reloc = int(bf.state.ctrl.reloc_events)
     assert reloc >= 1
     assert bf._reloc_seen == reloc, "the periodic hook saw every relocalization"
     valid = out.valid

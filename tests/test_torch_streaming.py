@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from bundlefusion_tpu.bundle.pipeline import BundleFusion as JaxBF
 from bundlefusion_tpu.bundle.pipeline import run_sequence as jax_run
 from bundlefusion_tpu.config import tiny_test_config as j_tiny
 from bundlefusion_tpu.fusion import blocks as jb
@@ -27,6 +28,7 @@ from bundlefusion_tpu.fusion import tsdf as jt
 from bundlefusion_tpu.io import framewire as jfw
 from bundlefusion_tpu.io.replayer import Replayer, SyntheticSource
 from bundlefusion_tpu_torch import interop
+from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion as PortBF
 from bundlefusion_tpu_torch.bundle.pipeline import run_sequence as port_run
 from bundlefusion_tpu_torch.config import tiny_test_config as t_tiny
 from bundlefusion_tpu_torch.fusion import blocks as tb
@@ -108,20 +110,17 @@ def test_stream_out_then_in_matches_jax(fused):
     _assert_tables_equal(jtab, ttab)
 
 
-def test_stream_in_merges_a_block_reallocated_while_cold(fused):
-    """Blocks re-allocated on the device while their cold copies sit in the
-    host store (the camera came back) are merged by weighted mean."""
-    np_table, cam_pos = fused
-    jtab, ttab = _jax_table(np_table), interop.state_from_numpy(np_table, "cpu")
-    jstore, tstore = js.HostBlockStore(), ts.HostBlockStore()
-    jtab, n = js.stream_out(jtab, jstore, cam_pos, _radius(APP_J, 1.0))
-    ttab, _ = ts.stream_out(ttab, tstore, cam_pos, _radius(APP_T, 1.0))
-    # half of the evicted keys come back on the device with fresh data
-    back = np.sort(_evicted(jstore, n)[::2])
-    rng = np.random.default_rng(7)
-    sdf = rng.uniform(-0.05, 0.05, (len(back), 512)).astype(np.float32)
-    wgt = rng.uniform(0.0, 3.0, (len(back), 512)).astype(np.float32)
-    col = rng.uniform(0.0, 2.0, (len(back), 1536)).astype(np.float32)
+def _reallocate(jtab, ttab, back, data=None):
+    """Allocate ``back`` on both devices again with the same fresh data (the
+    camera came back while their cold copies sit in the host store): the
+    (sdf, weight, colour) rows of ``data``, or random ones. Returns both
+    tables and the port's slots of ``back``."""
+    if data is None:
+        rng = np.random.default_rng(7)
+        data = (rng.uniform(-0.05, 0.05, (len(back), 512)).astype(np.float32),
+                rng.uniform(0.0, 3.0, (len(back), 512)).astype(np.float32),
+                rng.uniform(0.0, 2.0, (len(back), 1536)).astype(np.float32))
+    sdf, wgt, col = data
     jtab, _ = jb.allocate(jtab, jnp.asarray(back))
     sj, _ = jb.lookup(jtab, jnp.asarray(back))
     jtab = jtab._replace(sdf=jtab.sdf.at[sj].set(sdf), weight=jtab.weight.at[sj].set(wgt),
@@ -132,6 +131,19 @@ def test_stream_in_merges_a_block_reallocated_while_cold(fused):
     st = st.long()
     ttab.sdf[st], ttab.weight[st], ttab.color[st] = torch.as_tensor(sdf), torch.as_tensor(wgt), torch.as_tensor(col)
     np.testing.assert_array_equal(np.asarray(sj), st.numpy())
+    return jtab, ttab, st
+
+
+def test_stream_in_merges_a_block_reallocated_while_cold(fused):
+    """Blocks re-allocated on the device while their cold copies sit in the
+    host store (the camera came back) are merged by weighted mean."""
+    np_table, cam_pos = fused
+    jtab, ttab = _jax_table(np_table), interop.state_from_numpy(np_table, "cpu")
+    jstore, tstore = js.HostBlockStore(), ts.HostBlockStore()
+    jtab, n = js.stream_out(jtab, jstore, cam_pos, _radius(APP_J, 1.0))
+    ttab, _ = ts.stream_out(ttab, tstore, cam_pos, _radius(APP_T, 1.0))
+    # half of the evicted keys come back on the device with fresh data
+    jtab, ttab, st = _reallocate(jtab, ttab, np.sort(_evicted(jstore, n)[::2]))
     jtab, nj = js.stream_in(jtab, jstore, cam_pos, _radius(APP_J, 100.0))
     ttab, nt = ts.stream_in(ttab, tstore, cam_pos, _radius(APP_T, 100.0))
     assert nj == nt == n
@@ -142,6 +154,63 @@ def test_stream_in_merges_a_block_reallocated_while_cold(fused):
         a, b = np.asarray(getattr(jtab, k)), getattr(ttab, k).numpy()
         np.testing.assert_allclose(b[merged], a[merged], rtol=1e-6, atol=1e-9, err_msg=k)
         np.testing.assert_array_equal(np.delete(a, merged, axis=0), np.delete(b, merged, axis=0), err_msg=k)
+
+
+@pytest.fixture
+def stored_twice(fused):
+    """Stores that hold keys twice: blocks evicted, re-allocated while cold
+    (their surface seen again 1 cm further out, with more weight and another
+    colour), and evicted again before a stream-in merged them. Returns the
+    JAX and the port (table, store) and the camera position."""
+    np_table, cam_pos = fused
+    jtab, ttab = _jax_table(np_table), interop.state_from_numpy(np_table, "cpu")
+    jstore, tstore = js.HostBlockStore(), ts.HostBlockStore()
+    jtab, n = js.stream_out(jtab, jstore, cam_pos, _radius(APP_J, 1.0))
+    ttab, _ = ts.stream_out(ttab, tstore, cam_pos, _radius(APP_T, 1.0))
+    rows = np.arange(jstore._cap - n, jstore._cap)[::2]  # every second evicted block
+    back, wgt = jstore._keys[rows], jstore._wgt[rows]
+    again = (jstore._sdf[rows] + 0.01, np.where(wgt > 0, wgt + 1.0, 0.0).astype(np.float32), 0.5 * jstore._col[rows])
+    jtab, ttab, _ = _reallocate(jtab, ttab, back, again)
+    jtab, nj = js.stream_out(jtab, jstore, cam_pos, _radius(APP_J, 1.0))
+    ttab, nt = ts.stream_out(ttab, tstore, cam_pos, _radius(APP_T, 1.0))
+    assert nj == nt == len(back)
+    _assert_stores_equal(jstore, tstore)
+    live = np.concatenate([tstore._keys[rows] for rows in tstore._chunks.values()])
+    assert len(live) == n + len(back) and len(np.unique(live)) == n
+    return (jtab, jstore), (ttab, tstore), cam_pos
+
+
+def test_stream_in_of_a_key_stored_twice_matches_jax(stored_twice):
+    """The JAX package scatters such a batch in order (the last copy's sdf
+    and weight, every copy's colour); the port writes the same. Bit-equal:
+    the device rows are fresh, so each merge is a copy's own data."""
+    (jtab, jstore), (ttab, tstore), cam_pos = stored_twice
+    n = len(tstore)
+    jtab, nj = js.stream_in(jtab, jstore, cam_pos, _radius(APP_J, 100.0))
+    ttab, nt = ts.stream_in(ttab, tstore, cam_pos, _radius(APP_T, 100.0))
+    assert nj == nt == n and len(tstore) == 0
+    _assert_stores_equal(jstore, tstore)
+    _assert_tables_equal(jtab, ttab)
+
+
+def test_mesh_paging_of_a_key_stored_twice_matches_jax(stored_twice):
+    """``extract_mesh`` pages the host store through scratch tables, where
+    the JAX package keeps the last copy of a key stored twice; so does the
+    port. Bars of ``test_torch_mesh.py``: equal faces, vertices and colours
+    within 1e-5."""
+    (jtab, jstore), (ttab, tstore), _ = stored_twice
+    cam = cached_sequence(8, width=64, height=48).camera
+    jbf = JaxBF(cam, j_tiny())
+    tbf = PortBF(cam, t_tiny(), device="cpu")
+    jbf.table, jbf.block_store = jtab, jstore
+    tbf.state.table, tbf.block_store = ttab, tstore
+    vj, cj, fj = jbf.extract_mesh()
+    vt, ct, ft = tbf.extract_mesh()
+    device_only = len(tmc.extract_mesh(ttab, APP_T)[2])
+    assert len(ft) == len(fj) > device_only
+    np.testing.assert_array_equal(fj, ft)
+    np.testing.assert_allclose(vt, vj, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ct, cj, rtol=0, atol=1e-5)
 
 
 def test_free_slots_by_mask_matches_jax(fused):
@@ -213,13 +282,13 @@ def test_pipeline_streaming_matches_jax(stream_runs):
     # f32 GN/PCG sums in another order stop at the PCG gate at other points
     # (ROADMAP Queue 3). Hence 2e-5, not 1e-5.
     assert err <= 2e-5
-    assert int(bt.table.num_active()) == int(bj.table.num_active())
+    assert int(bt.state.table.num_active()) == int(bj.table.num_active())
 
 
 def test_pipeline_streaming_mesh_covers_the_host_store(stream_runs):
     _, (bt, _) = stream_runs
     verts, cols, faces = bt.extract_mesh()
-    dev_only, _, _ = tmc.extract_mesh(bt.table, bt.config.app)
+    dev_only, _, _ = tmc.extract_mesh(bt.state.table, bt.config.app)
     assert len(verts) > 500 and len(verts) > len(dev_only)
     assert faces.shape == (len(verts) // 3, 3) and cols.shape == verts.shape
     assert np.isfinite(verts).all()
