@@ -4,9 +4,10 @@ Same subpackages and module names as the JAX package, so each module's
 counterpart sits at the same path:
 
   * ``geometry`` — SE(3)/SO(3), camera model, Kabsch.
-  * ``io``       — frame wire formats (v1 RGB and v2 luma, the wire
-    bilateral), synthetic scenes (room, corridor) and sensor noise, ``.sens``
-    (with the native RVL/zlib codecs of ``native/sensio.cpp``) and TUM
+  * ``io``       — frame wire formats (v1 RGB and v2 luma, 12-bit depth,
+    the wire bilateral; native C++ in ``native/framewire.cpp``), synthetic
+    scenes (room, corridor) and sensor noise, ``.sens`` (with the native
+    RVL/zlib codecs of the JAX package's ``native/sensio.cpp``) and TUM
     readers, the replayer, the PLY writer.
   * ``ops``      — frame preprocessing (carries the fused preprocess kernel).
   * ``features`` — batched SIFT, descriptor matching, correspondence filters.
@@ -22,8 +23,11 @@ counterpart sits at the same path:
   * ``app``      — the command line (``python -m bundlefusion_tpu_torch.app``,
     ``--multiseq N`` for the multi-sequence driver); ``visualization``
     writes its preview images.
+  * ``tools``    — the developer tools (``python -m
+    bundlefusion_tpu_torch.tools.profile_stages`` and ``.offline_matching``).
 
-Every module of the JAX package has its counterpart except ``tools/``.
+Every module of the JAX package has its counterpart; the JAX-runtime
+helpers that have no PyTorch meaning are listed in ``ROADMAP.md``.
 
 The hand-written CUDA kernels live in ``csrc/`` and are built with nvcc on
 first use (``kernels.py``). Every kernel wrapper runs the kernel for CUDA

@@ -123,12 +123,13 @@ def main(argv=None) -> int:
                 continue
             bf.push_frame(batch.depth[i], batch.color[i])
             frame_idx += 1
-            if args.preview_every and frame_idx % args.preview_every == 0 and bf.num_frames:
-                pose, valid = bf.current_poses()
-                last = min(bf.num_frames, len(pose)) - 1
-                if valid[last]:
-                    img = bf.render_preview(pose[last])
+            if args.preview_every and frame_idx % args.preview_every == 0:
+                pose, valid = bf.current_poses()  # drains the ingest workers first
+                if len(pose) and valid[-1]:
+                    img = bf.render_preview(pose[-1])
                     save_preview(os.path.join(args.out, f"preview_{frame_idx:05d}.png"), img)
+        if args.checkpoint_every:
+            bf.sync()  # chunk_count lags under async ingest until drained
         if args.checkpoint_every and bf.chunk_count and bf.chunk_count % args.checkpoint_every == 0:
             save_checkpoint(bf, os.path.join(args.out, "checkpoint.pkl"))
     bf.flush()

@@ -9,6 +9,24 @@ selects, and per-chunk diagnostics accumulate in a device-side log read once
 at ``finalize()``. The host converts frames to the wire format, uploads one
 chunk at a time (one pinned, non-blocking copy), and enqueues work.
 
+The ingest stage is the JAX package's: frames convert into FrameStore slabs
+(``framewire.frame_to_wire2(out=)``, native C++ when it builds); a chunk's
+rows are packed into one flat buffer from a pool of warm pinned buffers in a
+3-deep rotation, with depth 12-bit-packed whenever ``depth_max`` allows;
+after chunk 0 only the S new rows travel, the overlap frame is reused from
+the device (``_prev_tail``). Two module-level single-thread workers take
+each chunk in strict FIFO order: the upload worker copies and unpacks it
+(``_unpack_wire``) on the pipeline's copy stream, so that on a card the copy
+overlaps the previous chunk's compute; the dispatch worker makes the compute
+stream wait for that copy (a device-side wait) and runs ``_process_chunk``. Before
+chunk c is dispatched, the host waits on a CUDA event recorded at the end of
+chunk c-2 (backpressure: a wait on the device, never a readback).
+:meth:`BundleFusion.sync` drains the workers and re-raises their exceptions
+in chunk order; every public accessor calls it. ``BF_SYNC_INGEST=1`` or
+``profile=True`` run both stages on the caller's thread; ``profile=True``
+also makes every timed stage wait for the device at its end, and turns the
+backpressure off.
+
 Where the JAX package donates buffers to its fused programs, the port
 updates them in place: the voxel pools, the frame ring, the per-frame update
 records, the keyframe slots and the per-chunk stores (each site says so).
@@ -32,8 +50,15 @@ each shard's state and steps in the multi-sequence driver
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import functools
+import os
+import threading
 import time
+import weakref
+from collections import Counter
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -309,6 +334,142 @@ def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, chunk_
     st.runlog_rows[chunk_idx] = row  # in place
 
 
+# --- warm host staging pool --------------------------------------------------
+# Host buffers for the chunk upload and the FrameStore, pooled at module level
+# so that their pages stay resident across pipeline instances: a first write
+# to fresh memory page-faults, and pinning is slow. A pipeline checks out a
+# 3-deep rotation of upload buffers (pinned when it feeds a card) and returns
+# them, with its FrameStore slabs, when it is garbage-collected.
+_STAGING_POOL: dict[tuple, list] = {}
+_STAGING_DEPTH = 3
+_POOL_LOCK = threading.Lock()
+# dispatch runahead: chunks staged but not yet dispatched (each pins a
+# chunk's device copy)
+_MAX_UNDISPATCHED = 4
+
+
+@dataclass(eq=False)
+class _HostBuf:
+    """One pooled host buffer: ``flat`` (uint8, pinned when it feeds a card)
+    carved into the ``arrays`` of its spec. ``upload`` is the upload that
+    last read it, ``copied`` the CUDA event recorded after that copy."""
+
+    flat: torch.Tensor
+    arrays: tuple[np.ndarray, ...]
+    upload: concurrent.futures.Future | None = None
+    copied: object | None = None
+
+
+def _new_buf(spec, pinned: bool) -> _HostBuf:
+    sizes = [int(np.prod(shape)) * dt.itemsize for shape, dt in spec]
+    flat = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=pinned)
+    flat.zero_()  # touch every page now, not inside the first timed chunk
+    host, arrays, off = flat.numpy(), [], 0
+    for (shape, dt), n in zip(spec, sizes):
+        arrays.append(host[off : off + n].view(dt).reshape(shape))
+        off += n
+    return _HostBuf(flat, tuple(arrays))
+
+
+def _checkin(key, bufs: list[_HostBuf]) -> None:
+    with _POOL_LOCK:
+        _STAGING_POOL[key].extend(bufs)
+
+
+def _staging_checkout(owner, spec, n: int = _STAGING_DEPTH, pinned: bool = False) -> list[_HostBuf]:
+    """Check out ``n`` warm buffers of ``spec`` ((shape, dtype), ...; uint16
+    arrays first, so that each starts at an even offset); they return to the
+    pool when ``owner`` is garbage-collected."""
+    spec = tuple((tuple(shape), np.dtype(dt)) for shape, dt in spec)
+    key = (tuple((shape, dt.str) for shape, dt in spec), pinned)
+    with _POOL_LOCK:
+        free = _STAGING_POOL.setdefault(key, [])
+        bufs = [free.pop() for _ in range(min(n, len(free)))]
+    bufs += [_new_buf(spec, pinned) for _ in range(n - len(bufs))]
+    weakref.finalize(owner, _checkin, key, bufs)
+    return bufs
+
+
+# --- shared ingest workers ----------------------------------------------------
+# One upload worker (host->device copy and unpack) feeding one dispatch
+# worker (_process_chunk). Each is a single thread, so chunk order is strict
+# per pipeline and across pipelines. Created at first use.
+@functools.lru_cache(maxsize=None)
+def _executor(stage: str) -> concurrent.futures.ThreadPoolExecutor:
+    return concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix=f"bf-{stage}")
+
+
+def _wire_views(flat: np.ndarray, cf: int, h: int, w: int, hi: int, wi: int, pack12: bool) -> list[np.ndarray]:
+    """Carve one chunk's wire out of one flat staging buffer: depth (uint16
+    [cf, h, w], or 12-bit-packed uint8 triples [cf, h*w/2*3]), luma [cf, h,
+    w], half-res colour [cf, h/2, w/2, 3], then depth and half-res colour at
+    the integration resolution when (hi, wi) != (h, w)."""
+    views, off = [], 0
+
+    def take(shape, dtype):
+        nonlocal off
+        n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        views.append(flat[off : off + n].view(dtype).reshape(shape))
+        off += n
+
+    def take_d(hh, ww):
+        take((cf, hh * ww // 2 * 3), np.uint8) if pack12 else take((cf, hh, ww), np.uint16)
+
+    take_d(h, w)
+    take((cf, h, w), np.uint8)
+    take((cf, h // 2, w // 2, 3), np.uint8)
+    if (hi, wi) != (h, w):
+        take_d(hi, wi)
+        take((cf, hi // 2, wi // 2, 3), np.uint8)
+    return views
+
+
+def _wire_nbytes(cf: int, h: int, w: int, hi: int, wi: int, pack12: bool) -> int:
+    db = (h * w // 2 * 3) if pack12 else (h * w * 2)
+    n = cf * db + cf * h * w + cf * (h // 2) * (w // 2) * 3
+    if (hi, wi) != (h, w):
+        dbi = (hi * wi // 2 * 3) if pack12 else (hi * wi * 2)
+        n += cf * dbi + cf * (hi // 2) * (wi // 2) * 3
+    return n
+
+
+def _unpack_wire(flat: torch.Tensor, cf: int, h: int, w: int, hi: int, wi: int, pack12: bool):
+    """Device-side unpack of a flat chunk buffer (uint8) laid out by
+    :func:`_wire_views`: (depth, luma, colour, depth at the integration
+    resolution, colour at it), the last two the first and third when the
+    resolutions are equal. Depth comes back as int16 holding the uint16 mm
+    bits; 12-bit depth unpacks 3 bytes into 2 values."""
+    off = 0
+
+    def take_u16(shape):
+        nonlocal off
+        n = int(np.prod(shape))
+        if pack12:
+            t = flat[off : off + n // 2 * 3].reshape(*shape[:-1], shape[-1] // 2, 3).to(torch.int16)
+            off += n // 2 * 3
+            p0 = t[..., 0] | ((t[..., 1] & 0xF) << 8)
+            p1 = (t[..., 1] >> 4) | (t[..., 2] << 4)
+            return torch.stack([p0, p1], dim=-1).reshape(shape)
+        t = flat[off : off + 2 * n].reshape(*shape, 2).to(torch.int32)
+        off += 2 * n
+        v = t[..., 0] | (t[..., 1] << 8)
+        return ((v ^ 0x8000) - 0x8000).to(torch.int16)  # the uint16 bits as int16
+
+    def take_u8(shape):
+        nonlocal off
+        n = int(np.prod(shape))
+        seg = flat[off : off + n].reshape(shape)
+        off += n
+        return seg
+
+    d16 = take_u16((cf, h, w))
+    y8 = take_u8((cf, h, w))
+    c8h = take_u8((cf, h // 2, w // 2, 3))
+    if (hi, wi) != (h, w):
+        return d16, y8, c8h, take_u16((cf, hi, wi)), take_u8((cf, hi // 2, wi // 2, 3))
+    return d16, y8, c8h, d16, c8h
+
+
 class PipelineOutputs(NamedTuple):
     poses: np.ndarray  # [F, 4, 4] final optimized world poses
     valid: np.ndarray  # [F] bool
@@ -328,8 +489,13 @@ class BundleFusion:
         mesh=None,
         *,
         device: torch.device | str,
+        profile: bool = False,
     ):
         self.device = torch.device(device)
+        # profile=True waits for the device at the end of every timed stage,
+        # so each stage's time is its own (the default lets a chunk's work
+        # queue back to back), and runs ingest on the caller's thread
+        self.profile = profile
         self.config = config or Config()
         self.config.validate()
         bc = self.config.bundling
@@ -384,9 +550,42 @@ class BundleFusion:
         # frame storage for de/re-integration: the host FrameStore holds every
         # frame (wire format); the device ring caches slot = id % R
         self._frame_store: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        # the FrameStore's backing slabs (chunk_frames rows each) from the
+        # warm pool; frame_to_wire2 writes straight into the current row
+        self._fs_slabs: list[_HostBuf] = []
         self._next_fid = 0
         self._ring_uploads = 0
-        self._pending: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+        # wire rows (d16, y8, c8h, d16 and c8h at the integration resolution)
+        # awaiting a full chunk; the overlap frame stays at the head
+        self._pending: list[tuple[np.ndarray, ...]] = []
+        # 12-bit depth wire whenever the sensor ceiling fits 12 bits of mm
+        # (the reference's default 4.0 m does)
+        self._pack12 = ac.depth_max * 1000.0 + 1.0 < 4096.0
+        self._wire_dims = (cam.height, cam.width, self.int_cam.height, self.int_cam.width, self._pack12)
+        # chunk 0 (and the first chunk after a resume) uploads all
+        # chunk_frames rows, every later chunk the S new ones
+        pinned = dev.type == "cuda"
+        self._stage_full = _staging_checkout(self, (((_wire_nbytes(self.chunk_frames, *self._wire_dims),), np.uint8),),
+                                             1, pinned)[0]
+        self._stage = _staging_checkout(self, (((_wire_nbytes(self.S, *self._wire_dims),), np.uint8),),
+                                        pinned=pinned)
+        self._stage_rot = 0
+        self._chunks_staged = 0  # main thread: chunks handed to the upload stage
+        self.upload_bytes: list[int] = []  # bytes of each chunk's upload
+        self._prev_tail: tuple[torch.Tensor, ...] | None = None  # upload stage only
+        self._bp_events: list = []  # backpressure: the end of each of the last chunks
+        # host waits of the ingest stage that blocked, by site: "backpressure"
+        # (chunk c-2's CUDA event), "staging" (a buffer's previous upload and
+        # copy), "runahead" (the dispatch worker _MAX_UNDISPATCHED chunks behind);
+        # counted from two threads, under a lock
+        self.ingest_waits: Counter[str] = Counter()
+        self._waits_lock = threading.Lock()
+        self._chunk_futs: list[concurrent.futures.Future] = []  # dispatch futures (sync() drains)
+        self._async_ingest = not profile and os.environ.get("BF_SYNC_INGEST", "0") != "1"
+        # the stream every chunk's work is enqueued on, from any thread, and
+        # the upload's own stream (copy and unpack overlap the chunk step)
+        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        self._copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self._finalized = False
         self._reloc_seen = 0  # relocalizations already followed by a revalidation
         # out-of-core streaming: cold blocks live in the host store; the
@@ -410,7 +609,17 @@ class BundleFusion:
         resolution, depth and colour are also decimated for fusion) and
         upload once per chunk."""
         ac = self.config.app
-        d16, y8, c8h = framewire.frame_to_wire2(depth, color, depth_min=ac.depth_min, depth_max=ac.depth_max)
+        cf, h, w = self.chunk_frames, self.cam.height, self.cam.width
+        row = self._next_fid % cf
+        if row == 0 or not self._fs_slabs:
+            # (no slab at row != 0: a pipeline restored from a checkpoint
+            # mid-chunk starts partway into a fresh slab)
+            self._fs_slabs += _staging_checkout(
+                self, (((cf, h, w), np.uint16), ((cf, h, w), np.uint8), ((cf, h // 2, w // 2, 3), np.uint8)), 1
+            )
+        slab_d, slab_y, slab_c = self._fs_slabs[-1].arrays
+        d16, y8, c8h = framewire.frame_to_wire2(depth, color, out=(slab_d[row], slab_y[row], slab_c[row]),
+                                                depth_min=ac.depth_min, depth_max=ac.depth_max)
         if ac.integrate_filtered_depth:
             d16 = framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
         sy, sx = self._int_step
@@ -425,46 +634,114 @@ class BundleFusion:
             if valid is None or valid[i]:
                 self.push_frame(depth[i], color[i])
 
+    def _device_ctx(self, stream=None):
+        """The pipeline's device and ``stream`` (default: the compute
+        stream) for the calling thread (in PyTorch both belong to each
+        thread)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._stream if stream is None else stream))
+        return stack
+
+    def _count_wait(self, site: str) -> None:
+        with self._waits_lock:
+            self.ingest_waits[site] += 1
+
+    def _wait_event(self, event, site: str) -> None:
+        """Wait on the host for a CUDA event (work already enqueued; no data
+        comes back), counting the waits that blocked by site."""
+        if not event.query():
+            self._count_wait(site)
+            event.synchronize()
+
     def _maybe_process_chunk(self) -> None:
         # chunk c consumes frames [c*S, c*S + S]; the overlap frame c*S stays
         # at the head of _pending for the next chunk
         while len(self._pending) >= self.chunk_frames:
-            self._process_chunk(*self._upload(self._pending[: self.chunk_frames]))
+            first = self._chunks_staged == 0
+            buf = self._stage_full if first else self._stage[self._stage_rot]
+            # the rotation came back to this buffer: its last copy must be done
+            if buf.upload is not None and not buf.upload.done():
+                self._count_wait("staging")
+                concurrent.futures.wait([buf.upload])
+            if buf.copied is not None:
+                self._wait_event(buf.copied, "staging")
+            lo = 0 if first else 1  # after chunk 0 the overlap row is on the device
+            views = _wire_views(buf.arrays[0], self.chunk_frames - lo, *self._wire_dims)
+            for i, r in enumerate(self._pending[lo : self.chunk_frames]):
+                for k, (v, x) in enumerate(zip(views, r)):  # depth, luma, colour[, depth, colour]
+                    if self._pack12 and k in (0, 3):
+                        framewire.pack_depth12(x, out=v[i])
+                    else:
+                        v[i] = x
+            if not first:
+                self._stage_rot = (self._stage_rot + 1) % _STAGING_DEPTH
+            self._chunks_staged += 1
+            self.upload_bytes.append(buf.flat.numel())
+            upload = functools.partial(self._upload, buf, first)
+            if self._async_ingest:
+                buf.upload = _executor("upload").submit(upload)
+                self._bound_runahead()
+                self._chunk_futs.append(_executor("dispatch").submit(lambda f=buf.upload: self._dispatch(f.result())))
+            else:
+                self._dispatch(upload())
             self._pending = self._pending[self.S :]
 
-    def _upload(self, rows: list[tuple[np.ndarray, ...]]):
-        """Stack one chunk's wire on the host into one (pinned, on a card)
-        buffer and send it with one non-blocking copy. Returns device views:
-        depth [cf, H, W] int16, luma [cf, H, W] uint8, colour
-        [cf, H/2, W/2, 3], then depth and half-res colour at the integration
-        resolution (the same views when it is the input resolution)."""
-        cf = len(rows)
-        h, w = self.cam.height, self.cam.width
-        hi, wi = self.int_cam.height, self.int_cam.width
-        same = (hi, wi) == (h, w)
-        # (field of the row, shape, dtype); the uint16 segments first, so
-        # that each starts at an even offset
-        segs = [(0, (cf, h, w), np.uint16), (3, (cf, hi, wi), np.uint16), (1, (cf, h, w), np.uint8),
-                (2, (cf, h // 2, w // 2, 3), np.uint8), (4, (cf, hi // 2, wi // 2, 3), np.uint8)]
-        if same:
-            segs = [x for x in segs if x[0] < 3]
-        sizes = [int(np.prod(shape)) * np.dtype(dt).itemsize for _, shape, dt in segs]
-        pinned = self.device.type == "cuda"
-        flat = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=pinned)
-        host = flat.numpy()
-        off = 0
-        for (i, shape, dt), n in zip(segs, sizes):
-            host[off : off + n].view(dt).reshape(shape)[:] = [r[i] for r in rows]
-            off += n
-        dev = flat.to(self.device, non_blocking=pinned)
-        views, off = {}, 0
-        for (i, shape, dt), n in zip(segs, sizes):
-            seg = dev[off : off + n]
-            views[i] = (seg.view(torch.int16) if dt == np.uint16 else seg).view(shape)
-            off += n
-        if same:
-            views[3], views[4] = views[0], views[2]
-        return [views[i] for i in range(5)]
+    def _bound_runahead(self) -> None:
+        """Drop dispatched chunks from the head of the futures (a failed one
+        stays for sync() to raise), and wait while too many chunks are
+        staged but not dispatched."""
+        while self._chunk_futs and self._chunk_futs[0].done() and self._chunk_futs[0].exception() is None:
+            self._chunk_futs.pop(0)
+        waiting = [f for f in self._chunk_futs if not f.done()]
+        if len(waiting) >= _MAX_UNDISPATCHED:
+            self._count_wait("runahead")
+            concurrent.futures.wait(waiting[: len(waiting) - _MAX_UNDISPATCHED + 1])
+
+    def _upload(self, buf: _HostBuf, first: bool):
+        """The upload stage, on the copy stream: one copy of a staged chunk
+        to the device (the buffer's ``copied`` event marks its end on a
+        card), then the device unpack. After chunk 0 the overlap row comes
+        from the previous chunk's last row. Returns (depth [cf, H, W] int16,
+        luma [cf, H, W], colour [cf, H/2, W/2, 3], then depth and colour at
+        the integration resolution), and on a card the event that marks the
+        unpack's end."""
+        with self._device_ctx(self._copy_stream):
+            with self.timing.stage("upload", block=self.profile):
+                if self._stream is None:
+                    flat = buf.flat.clone()  # the buffer is refilled once this returns
+                else:
+                    flat = buf.flat.to(self.device, non_blocking=True)
+                    buf.copied = torch.cuda.Event()
+                    buf.copied.record()
+            new = _unpack_wire(flat, self.chunk_frames - (0 if first else 1), *self._wire_dims)
+            if first:
+                full = new
+            else:
+                same = new[3] is new[0]
+                full = tuple(torch.cat([p, n]) for p, n in zip(self._prev_tail, new[: 3 if same else 5]))
+                if same:
+                    full += (full[0], full[2])
+            self._prev_tail = tuple(x[-1:] for x in full)
+            if self._copy_stream is None:
+                return full, None
+            for x in full:
+                x.record_stream(self._stream)  # the chunk step reads them on the compute stream
+            ready = torch.cuda.Event()
+            ready.record()
+            return full, ready
+
+    def _dispatch(self, uploaded) -> None:
+        """The dispatch stage: run the chunk step on an uploaded chunk
+        (:meth:`_upload`'s result), once the compute stream has waited for
+        its copy."""
+        views, ready = uploaded
+        with self._device_ctx():
+            if ready is not None:
+                self._stream.wait_event(ready)
+            self._process_chunk(*views)
 
     # ------------------------------------------------------------------
     # core per-chunk step
@@ -481,8 +758,11 @@ class BundleFusion:
         k_idx = c  # one keyframe per chunk
         st = self.state
         t_chunk = time.perf_counter()
+        # backpressure: the host dispatches at most ~2 chunks ahead of the device
+        if len(self._bp_events) >= 2 and not self.profile:
+            self._wait_event(self._bp_events.pop(0), "backpressure")
 
-        with self.timing.stage("chunk_local"):
+        with self.timing.stage("chunk_local", block=self.profile):
             res = chunk_mod.process_chunk(
                 d_wire, y_wire, self.cam, self.cache_cam, bc,
                 sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
@@ -491,7 +771,7 @@ class BundleFusion:
             )
         self.gn_iters_executed += bc.local_gn_iters * 2  # 2 solve+prune rounds
 
-        with self.timing.stage("graph_step"):
+        with self.timing.stage("graph_step", block=self.profile):
             st.graph, st.ctrl, integrate_mask, stats_in = _graph_step(
                 st.graph, st.ctrl, k_idx, res, st.local_trajs, st.chunk_valid, st.anchor, self.cache_cam, bc,
                 is_first=(k_idx == 0),
@@ -499,11 +779,11 @@ class BundleFusion:
         self.num_keyframes = k_idx + 1
 
         if self.num_keyframes > 1:
-            with self.timing.stage("global_solve"):
+            with self.timing.stage("global_solve", block=self.profile):
                 self._global_solve()
             self.gn_iters_executed += bc.global_gn_iters
 
-        with self.timing.stage("publish"):
+        with self.timing.stage("publish", block=self.profile):
             self._publish_trajectory()
 
         lo = 0 if c == 0 else 1  # the overlap frame is already integrated
@@ -511,14 +791,14 @@ class BundleFusion:
         new_ids = torch.arange(first_frame, first_frame + self.chunk_frames, device=dev)
         new_valid = torch.arange(self.chunk_frames, device=dev) >= lo
         self.num_frames = max(self.num_frames, first_frame + self.chunk_frames)
-        with self.timing.stage("plan_fuse"):
+        with self.timing.stage("plan_fuse", block=self.profile):
             _plan_and_fuse(
                 st, ac, self.int_cam, c, stats_in, d_wire_int, c_wire_int, new_ids, new_valid, integrate_mask,
                 exclude_from=first_frame + lo, budget=ac.max_reintegrations_per_frame * self.S,
             )
 
         if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
-            with self.timing.stage("gc"):
+            with self.timing.stage("gc", block=self.profile):
                 st.table, freed = blocks.garbage_collect(st.table)
                 st.gc_freed_total = st.gc_freed_total + freed.to(torch.float32)
 
@@ -537,6 +817,9 @@ class BundleFusion:
                 if self._revalidate_stale():
                     self._post_revalidate_solve()
 
+        if self._stream is not None:
+            self._bp_events.append(torch.cuda.Event())
+            self._bp_events[-1].record()
         self.timing.record("whole_chunk_step", time.perf_counter() - t_chunk)
         self.chunk_count += 1
 
@@ -547,7 +830,7 @@ class BundleFusion:
         active_blocks = int(self.state.table.num_active())
         cam_pos = self.state.graph.poses[k_idx, :3, 3].cpu().numpy()
         n_in = n_out = 0
-        with self.timing.stage("streaming"):
+        with self.timing.stage("streaming", block=self.profile):
             if len(self.block_store):
                 self.state.table, n_in = streaming.stream_in(
                     self.state.table, self.block_store, cam_pos, ac, free_capacity=ac.block_capacity - active_blocks
@@ -687,9 +970,17 @@ class BundleFusion:
         self.sync()
 
     def sync(self) -> None:
-        """The JAX package drains its ingest threads here. The port has none
-        (chunks are enqueued on the caller's thread), so there is nothing to
-        wait for; the call sites are kept so callers are the same."""
+        """Drain the ingest workers: wait until every staged chunk has been
+        uploaded and dispatched (its device work may still be in flight;
+        reads of its results wait for it). Pipeline state is coherent on the
+        caller's thread only after this returns; every public accessor calls
+        it first. Exceptions raised on the workers re-raise here in chunk
+        order (an upload's through its chunk's dispatch). The caller's
+        current stream then waits for the pipeline's stream."""
+        while self._chunk_futs:
+            self._chunk_futs.pop(0).result()
+        if self._stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
     def finalize(self) -> None:
         """End-of-sequence recovery (idempotent): revalidate stale keyframes
@@ -701,6 +992,7 @@ class BundleFusion:
             return
         self.sync()
         self._finalized = True
+        self._bp_events.clear()
         if self.num_keyframes > 1 and int(self.state.ctrl.reloc_events) > self._reloc_seen:
             # each call is bounded; loop until no progress so long stale
             # chains still unwind

@@ -145,6 +145,31 @@ def dense_verify_filter(cache_a, cache_b, T_ba, cam: CameraModel, cfg: BundlingC
     return (ok_frac > cfg.verify_ok_fraction) & (overlap > cfg.verify_min_overlap)
 
 
+def filter_pair(
+    pa: torch.Tensor,  # [M, 3]
+    pb: torch.Tensor,  # [M, 3]
+    matches: PairMatches,  # [M]
+    cache_a: FrameCache,  # one frame's cache
+    cache_b: FrameCache,
+    cache_cam: CameraModel,
+    cfg: BundlingConfig,
+    min_matches: int,
+    use_dense_verify: bool = True,
+) -> FilterResult:
+    """The full 3-stage filter for one pair: :func:`filter_pairs_batch` over
+    a batch of one."""
+    m = PairMatches(matches.idx_i[None], matches.idx_j[None], matches.dist[None], matches.valid[None])
+    r = filter_pairs_batch(pa[None], pb[None], m, cache_a.index(None), cache_b.index(None), cache_cam, cfg,
+                           min_matches, use_dense_verify)
+    fm = r.matches
+    return FilterResult(
+        matches=PairMatches(fm.idx_i[0], fm.idx_j[0], fm.dist[0], fm.valid[0]),
+        transform=r.transform[0],
+        pair_valid=r.pair_valid[0],
+        inlier_count=r.inlier_count[0],
+    )
+
+
 def filter_pairs_batch(
     pa: torch.Tensor,  # [P, M, 3]
     pb: torch.Tensor,  # [P, M, 3]

@@ -29,7 +29,8 @@ import torch
 from .. import kernels
 from ..config import AppConfig
 from ..geometry import se3
-from ..geometry.camera import CameraModel, unproject
+from ..geometry.camera import CameraModel, project, unproject
+from ..utils.tensor_ops import top_k
 from .blocks import (
     BLOCK,
     INVALID_KEY,
@@ -100,6 +101,29 @@ def frame_alloc_keys(
         k = pack_key(world_to_block(pw, cfg.voxel_size))
         keys.append(torch.where(valid, k, INVALID_KEY))
     return torch.cat(keys, dim=-1)
+
+
+def visible_blocks(
+    table: BlockTable, pose_c2w: torch.Tensor, cam: CameraModel, cfg: AppConfig
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The compacted visible-block set (``compactifyVisibleBlocks``): (slots
+    [cap] int32, mask [cap]) with cap = ``cfg.blocks_per_frame_cap``, the
+    allocated blocks whose centre lies in the frustum inflated by a block's
+    projected size, nearest first."""
+    coords = unpack_key(table.key_of_slot)
+    ctr = (coords.to(torch.float32) + 0.5) * (BLOCK * cfg.voxel_size)
+    p_cam = se3.transform_points(se3.mat_inverse(pose_c2w), ctr)
+    uv, _ = project(cam, p_cam)
+    z = p_cam[..., 2]
+    margin = BLOCK * cfg.voxel_size * cam.fx / torch.clamp(z, min=1e-3)
+    u, v = uv[..., 0], uv[..., 1]
+    near = (
+        (z > 0.05) & (z < cfg.max_integration_distance + 1.0)
+        & (u > -margin) & (u < cam.width + margin) & (v > -margin) & (v < cam.height + margin)
+        & (table.key_of_slot != INVALID_KEY)
+    )
+    top, slots = top_k(torch.where(near, -z, -torch.inf), cfg.blocks_per_frame_cap)
+    return slots.to(torch.int32), torch.isfinite(top)
 
 
 def color_wire(color: torch.Tensor) -> torch.Tensor:
@@ -393,6 +417,32 @@ def integrate(
     return table, FuseDiag(
         overflow=overflow, upd_truncated=f_trunc, patch_overflow=_zero(dev), upd_mask=rows.masks[0]
     )
+
+
+def deintegrate(
+    table: BlockTable,
+    depth: torch.Tensor,
+    color: torch.Tensor,
+    pose_c2w: torch.Tensor,
+    cam: CameraModel,
+    cfg: AppConfig,
+    upd_mask: torch.Tensor | None = None,
+) -> BlockTable:
+    """Exactly remove one frame's contribution: K1 with one inverse row (the
+    pose and depth must be the ones it was integrated with). No allocation:
+    the blocks must exist. Pass the ``FuseDiag.upd_mask`` recorded at
+    integrate time: a block the frame failed to update then (allocation
+    overflow) may exist now, and must not lose a contribution it never got."""
+    dev = depth.device
+    cap = cfg.blocks_per_frame_cap
+    upd_keys = dedup_keys(frame_alloc_keys(depth, pose_c2w, cam, cfg), cap)
+    rec = torch.ones((1, cap), dtype=torch.bool, device=dev) if upd_mask is None else upd_mask[None]
+    rows = _fuse_rows(
+        table, upd_keys[None], rec, torch.ones(1, dtype=torch.bool, device=dev),
+        torch.zeros(1, dtype=torch.int64, device=dev), pose_c2w[None], -torch.ones(1, device=dev), cam,
+    )
+    integrate_blocks(table, rows, depth[None], color_wire(color)[None], cfg)
+    return table
 
 
 def integrate_batch(

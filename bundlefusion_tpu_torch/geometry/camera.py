@@ -33,6 +33,12 @@ class CameraModel(NamedTuple):
             self.fx * sx, self.fy * sy, self.cx * sx, self.cy * sy, new_width, new_height
         )
 
+    def matrix(self, device: torch.device | str = "cuda") -> torch.Tensor:
+        """The 3x3 intrinsic matrix K (float32) on ``device``."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=torch.float32, device=device
+        )
+
 
 def pixel_grid(h: int, w: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(v, u) float32 pixel-coordinate planes [h, w]."""

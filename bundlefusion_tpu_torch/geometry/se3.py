@@ -33,6 +33,11 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: [..., 3, 3] -> [..., 3]."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula: axis-angle [..., 3] -> rotation matrix [..., 3, 3]."""
     theta2 = torch.sum(w * w, dim=-1)

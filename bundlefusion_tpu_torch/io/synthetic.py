@@ -90,6 +90,12 @@ def _normal(sdf, p: torch.Tensor) -> torch.Tensor:
     return n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-9)
 
 
+def scene_normal(p: torch.Tensor) -> torch.Tensor:
+    """Unit normals [..., 3] of the room scene at points ``p`` [..., 3]
+    (central differences of :func:`scene_sdf`)."""
+    return _normal(scene_sdf, p)
+
+
 def render_frame(pose_c2w: torch.Tensor, width: int, height: int, cam: CameraModel, sdf=scene_sdf,
                  steps: int = 128):
     """Sphere-trace frames of the scene ``sdf`` (``steps`` iterations) at

@@ -3,12 +3,19 @@
 On a CUDA device a stage is bracketed by two ``torch.cuda.Event``s recorded
 on the current stream: the stage costs no host sync, and its time is the
 device's, resolved when :meth:`TimingLog.summary` is read. On the CPU the
-host clock is used.
+host clock is used. ``stage(name, block=True)`` waits for the device at the
+stage's end and records the host clock from its start to then, as the JAX
+package's ``block=`` does: with every stage ending so, the device is idle
+when a stage starts, and a stage's time is really that stage's.
+
+Stages may be timed from several threads (the pipeline's ingest workers);
+summaries are read after those threads are drained.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from collections import defaultdict
 
@@ -24,10 +31,11 @@ class TimingLog:
         self.counts: dict[str, int] = defaultdict(int)
         self.maxes: dict[str, float] = defaultdict(float)
         self._pending: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+        self._lock = threading.Lock()
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        if self.cuda:
+    def stage(self, name: str, block: bool = False):
+        if self.cuda and not block:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -35,25 +43,32 @@ class TimingLog:
                 yield
             finally:
                 end.record()
-                self._pending.append((name, start, end))
+                with self._lock:
+                    self._pending.append((name, start, end))
             return
         t0 = time.perf_counter()
         try:
             yield
         finally:
+            if self.cuda:
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
             self.record(name, time.perf_counter() - t0)
 
     def record(self, name: str, seconds: float) -> None:
-        self.totals[name] += seconds
-        self.counts[name] += 1
-        self.maxes[name] = max(self.maxes[name], seconds)
+        with self._lock:
+            self.totals[name] += seconds
+            self.counts[name] += 1
+            self.maxes[name] = max(self.maxes[name], seconds)
 
     def _resolve(self) -> None:
         """Fold the recorded event pairs into the totals (waits for them)."""
-        for name, start, end in self._pending:
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for name, start, end in pending:
             end.synchronize()
             self.record(name, start.elapsed_time(end) * 1e-3)
-        self._pending.clear()
 
     def summary(self) -> dict[str, dict[str, float]]:
         self._resolve()

@@ -16,18 +16,25 @@ exits non-zero; there is no CPU fallback):
                 de-integrated, then re-integrated at moved poses, and 11 new
                 frames integrated), once with the v2 wire's half-res colour
                 and once with the v1 ring's full-res colour (bit-equal to the
-                twin); K2 over a chunk's 11 frames with and without the
-                point and normal maps.
+                twin), and ``tsdf.deintegrate``'s single inverse row; K2 over
+                a chunk's 11 frames with and without the point and normal
+                maps.
   4. slice    — the flagship configuration of ``bench.py`` (640x480, 262,144
                 blocks, 1 cm voxels) on 66 rendered frames through
-                push_frame -> flush -> outputs: a warm pass, then a timed
-                pass; every chunk valid, ATE <= 0.5 cm, both kernels launched.
+                push_frame -> flush -> outputs (async ingest, the default):
+                a warm pass, then a timed pass; every chunk valid, ATE <= 0.5
+                cm, both kernels launched.
                 Then a small configuration (128x96, 13 frames) run on the CPU
                 (twins) and twice on the card (kernels): CPU and card agree,
                 and the card runs are bit-identical.
   5. syncs    — host syncs in the steady state, counted under
-                ``torch.cuda.set_sync_debug_mode("warn")``: there must be
-                none (a deliberate sync first shows that the count works).
+                ``torch.cuda.set_sync_debug_mode("warn")``: there must be no
+                readback (deliberate syncs first show that the count works,
+                on the caller's thread and on the ingest worker, and that
+                "error" mode's exception comes back through the worker's
+                future, and that waiting on a CUDA event is not counted);
+                the ingest's waits that blocked (backpressure, staging,
+                runahead) are reported by site from the pipeline's own count.
   6. stream   — the flagship configuration with the default streaming
                 schedule (a check every 16 chunks until streaming engages)
                 on a 241-frame corridor walk rendered on the card, with the
@@ -62,8 +69,18 @@ exits non-zero; there is no CPU fallback):
                 320x240 integration resolution (fps, ATE, blocks, launches);
                 the host time of the wire bilateral; the native .sens codecs
                 (built or not) against pure Python, with equal bytes.
+ 12. ingest   — the native wire converter (it must be built) against numpy
+                on a 640x480 frame: host ms and equal bytes or differing
+                pixels; the flagship pass with async ingest and with
+                BF_SYNC_INGEST=1: fps, the caller's seconds in push_frame,
+                upload bytes of the first and steady chunks, readbacks (0)
+                and the ingest's waits by site, equal state digests; a
+                profile=True pass's stage table, its digests equal too; the
+                filtered-depth pass on the native bilateral (fps, ATE);
+                ``tools/profile_stages`` at 640x480 and
+                ``tools/offline_matching`` on two orbit frames.
 
-Phases 6-11 set the kernels' launch counts to 0 before their run and read
+Phases 6-12 set the kernels' launch counts to 0 before their run and read
 them after it: each of their paths must launch both kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
@@ -76,6 +93,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -161,6 +179,17 @@ def cuda_ms(torch, fn, n: int = 20, batch: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host milliseconds of ``fn`` over ``n`` calls after a warm one."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
 
 
 def flagship_config(T):
@@ -273,6 +302,60 @@ def check_k1(torch, T, dev, depth, c8, poses, cam, label="K1 tsdf_fuse"):
     )
 
 
+def check_deintegrate(torch, T, dev, depth, c8, poses, cam):
+    """``tsdf.deintegrate`` (K1 with one inverse row) on a table that holds
+    the chunk's first 11 frames: bit-equal to the twin on the same row, and
+    integrate followed by it restores the weights exactly."""
+    from bundlefusion_tpu_torch.fusion import blocks, tsdf
+
+    ac = flagship_config(T).app
+    table = blocks.make_table(ac.block_capacity, dev)
+    table, _ = tsdf.integrate_batch(table, depth[:11], c8[:11], poses[:11], torch.ones(11, dtype=torch.bool,
+                                    device=dev), cam, ac)
+    f = 5
+    cap = ac.blocks_per_frame_cap
+    keys = blocks.dedup_keys(tsdf.frame_alloc_keys(depth[f], poses[f], cam, ac), cap)
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    rows = tsdf._fuse_rows(table, keys[None], torch.ones((1, cap), dtype=torch.bool, device=dev), one,
+                           torch.zeros(1, dtype=torch.int64, device=dev), poses[f][None], -torch.ones(1, device=dev),
+                           cam)
+
+    def copy(t):
+        return dataclasses.replace(t, sdf=t.sdf.clone(), weight=t.weight.clone(), color=t.color.clone())
+
+    tk, tt = copy(table), copy(table)
+    tsdf.deintegrate(tk, depth[f], c8[f], poses[f], cam, ac)
+    tsdf._integrate_rows_torch(tt, rows, depth[f][None], c8[f][None], ac)
+    torch.cuda.synchronize()
+    if not torch.equal(tk.weight, tt.weight):
+        flips = int((tk.weight != tt.weight).sum())
+        raise AssertionError(f"deintegrate's weights differ from the twin at {flips} voxels")
+    err = max(float((tk.sdf - tt.sdf).abs().max()), float((tk.color - tt.color).abs().max()))
+    if err > 1e-5:
+        raise AssertionError(f"deintegrate's sdf/colour differ from the twin by {err}")
+    del tt
+    back, diag = tsdf.integrate(copy(tk), depth[f], c8[f], poses[f], cam, ac)
+    tsdf.deintegrate(back, depth[f], c8[f], poses[f], cam, ac, diag.upd_mask)
+    exact = torch.equal(back.weight, tk.weight)
+    applied = int(rows.masks.sum())
+    d1, rgba = depth[f][None], torch.nn.functional.pad(c8[f][None], (0, 1))
+    union = tsdf.fuse_worklist(rows, table.capacity)
+    ms = cuda_ms(torch, lambda: tsdf._launch_fuse(tk, rows, union, d1, rgba, ac))
+    whole_ms = cuda_ms(torch, lambda: tsdf.deintegrate(tk, depth[f], c8[f], poses[f], cam, ac), n=10)
+    plain_ms = cuda_ms(torch, lambda: tsdf._integrate_rows_torch(tk, rows, d1, c8[f][None], ac), n=5, batch=1)
+    h, w = depth.shape[1:]
+    bound_ms, bound_by = bound(applied * 512 * 40 + h * w * 4 + c8[0].numel(), applied * 512 * K1_FLOPS,
+                               applied * 512 * K1_MUFU)
+    phase("kernels", f"deintegrate (K1, one inverse row): {applied} applied blocks; bit-equal to the twin; integrate "
+          f"then deintegrate restores the weights exactly: {exact}; kernel {ms:.4f} ms, the whole function (keys, "
+          f"lookup, work list, launch) {whole_ms:.4f} ms, twin {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    if not exact:
+        raise AssertionError("integrate then deintegrate did not restore the weights exactly")
+    return dict(max_abs_err=err, applied_blocks=applied, ms=ms, function_ms=whole_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_k2(torch, T, dev, depth, cam):
     """K2 over a chunk's 11 frames, without geometry (the main path) and with."""
     from bundlefusion_tpu_torch.ops import preprocess as pp
@@ -335,23 +418,35 @@ def check_kernels(torch, T, dev):
                                                   "share_of_bound", "wrapper_ms")}
     del c8_full
     torch.cuda.empty_cache()
+    k1["deintegrate"] = check_deintegrate(torch, T, dev, depth, c8, poses, seq.camera)
+    torch.cuda.empty_cache()
     k2 = check_k2(torch, T, dev, depth[:11].contiguous(), seq.camera)
     return [k1, k2]
 
 
-def run_pass(T, seq, cfg, dev):
-    """push_frame -> flush over a whole sequence; returns (pipeline, seconds)."""
+def run_pass(T, seq, cfg, dev, push_seconds: list | None = None, wrap=None, **kw):
+    """push_frame -> flush over a whole sequence; returns (pipeline, seconds).
+    ``push_seconds`` collects the caller's seconds inside push_frame;
+    ``wrap(steady)`` runs the pushes and the flush (the sync counter); ``kw``
+    goes to the pipeline (``profile=``)."""
     import torch
 
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 
-    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev)
+    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev, **kw)
     if bf.device.type == "cuda":
         torch.cuda.synchronize()
+
+    def steady():
+        for i in range(len(seq.poses)):
+            t1 = time.perf_counter()
+            bf.push_frame(seq.depth[i], seq.color[i])
+            if push_seconds is not None:
+                push_seconds.append(time.perf_counter() - t1)
+        bf.flush()
+
     t0 = time.perf_counter()
-    for i in range(len(seq.poses)):
-        bf.push_frame(seq.depth[i], seq.color[i])
-    bf.flush()
+    steady() if wrap is None else wrap(steady)
     if bf.device.type == "cuda":
         torch.cuda.synchronize()
     return bf, time.perf_counter() - t0
@@ -454,10 +549,14 @@ def record_launches(kernels_out, path: str, launches: dict[str, int]) -> None:
 
 def sync_sites(torch, fn, where=None) -> list[str]:
     """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")`` and return
-    one line per synchronizing CUDA operation it called: the innermost frame
+    one line per synchronizing CUDA operation it called, on any thread (the
+    ingest workers' warnings reach the global handler): the innermost frame
     of the port's code, then the innermost frame overall, prefixed by
-    ``where()`` when given. Only PyTorch's per-operation warning counts;
-    turning the mode on prints a notice of its own, which is not a sync."""
+    ``where()`` when given. Every such line is a readback: waiting on a CUDA
+    event (the pipeline's backpressure and staging waits) is not a sync
+    PyTorch reports, so those waits are read from the pipeline's own
+    ``ingest_waits``. Only PyTorch's per-operation warning counts; turning
+    the mode on prints a notice of its own, which is not a sync."""
     sites: list[str] = []
 
     def on_warning(message, category, filename, lineno, file=None, line=None):
@@ -478,14 +577,44 @@ def sync_sites(torch, fn, where=None) -> list[str]:
     return sites
 
 
+def by_site(sites: list[str]) -> dict[str, int]:
+    return {x: sites.count(x) for x in sorted(set(sites))}
+
+
 def count_syncs(torch, T, seq, cfg, dev) -> None:
-    """Phase 5: no host sync during the steady-state pushes of one flagship
-    pass; a deliberate ``.item()`` first shows that the count sees syncs."""
+    """Phase 5: no readback during the steady-state pushes of one flagship
+    pass (async ingest); deliberate ``.item()`` calls first show that the
+    count sees syncs on the caller's thread and on the ingest's dispatch
+    worker, and that "error" mode's exception on that worker comes back
+    through its future."""
+    from bundlefusion_tpu_torch.bundle import pipeline as pipe
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 
-    control = sync_sites(torch, lambda: torch.ones(1, device=dev).sum().item())
-    if len(control) != 1:
-        raise AssertionError(f"the sync counter missed a deliberate sync: {control}")
+    def readback():
+        return torch.ones(1, device=dev).sum().item()
+
+    control = sync_sites(torch, readback)
+    worker = sync_sites(torch, lambda: pipe._executor("dispatch").submit(readback).result())
+    if len(control) != 1 or len(worker) != 1:
+        raise AssertionError(f"the sync counter missed a deliberate sync: caller {control}, worker {worker}")
+    # the pipeline's backpressure and staging waits are event waits: the
+    # counter must not see them (the pipeline counts them in ingest_waits)
+    torch.cuda._sleep(1_000_000)
+    ev = torch.cuda.Event()
+    ev.record()
+    event_wait = sync_sites(torch, ev.synchronize)
+    if event_wait:
+        raise AssertionError(f"the sync counter reports a CUDA event wait: {event_wait}")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipe._executor("dispatch").submit(readback).result()
+        raised = None
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if raised is None:
+        raise AssertionError("a readback on the dispatch worker in error mode did not raise through its future")
     bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev)
     torch.cuda.synchronize()
 
@@ -495,11 +624,12 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
         bf.flush()
 
     sites = sync_sites(torch, steady)
-    counts = {s: sites.count(s) for s in sorted(set(sites))}
-    phase("syncs", f"{len(sites)} host syncs in {FLAGSHIP_FRAMES} steady-state pushes (control: 1 of 1 seen); "
-          f"by site {counts}")
+    phase("syncs", f"{len(sites)} readbacks in {FLAGSHIP_FRAMES} steady-state pushes (controls: 1 of 1 seen on the "
+          f"caller's thread, 1 of 1 on the dispatch worker, 0 for a CUDA event wait; error mode on the worker raised "
+          f"through its future: {raised!r}); by site {by_site(sites)}; ingest waits that blocked (CUDA events and worker futures, "
+          f"not readbacks), by site {dict(bf.ingest_waits)}")
     if sites:
-        raise AssertionError(f"host syncs in the steady state: {counts}")
+        raise AssertionError(f"readbacks in the steady state: {by_site(sites)}")
 
 
 def keep_or_drop(path: str) -> str:
@@ -583,9 +713,11 @@ def digest_run(torch, T, seq, cfg, dev):
         return last["chunk_result"]
 
     @contextlib.contextmanager
-    def stage(name):
-        with stage_of(name):
+    def stage(name, block=False):
+        with stage_of(name, block=block):
             yield
+        if name == "upload":  # the upload worker: it runs beside the chunk step
+            return
         extra = {"chunk_result": last.pop("chunk_result")} if name == "chunk_local" else None
         recs.append((bf.chunk_count, name, state_digests(torch, bf, extra)))
 
@@ -660,9 +792,7 @@ def run_stream(torch, T, dev, kernels_out) -> None:
     distinct = len(np.unique(np.concatenate(keys)))
     ate = ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
     sync_chunks = sorted({int(x.split("|", 1)[0]) for x in sites})
-    by_site = {}
-    for x in sites:
-        by_site[x.split("|", 1)[1]] = by_site.get(x.split("|", 1)[1], 0) + 1
+    per_site = by_site([x.split("|", 1)[1] for x in sites])
     phase("stream", f"{n / dt:.3f} fps ({dt:.3f} s push_frame -> flush, {len(chunks)} chunks, under sync debug "
           f"mode); kernel launches {launches}; streaming steps {st['count']} ({st['total_s']:.3f} s in all, "
           f"max {st['max_ms']:.1f} ms), stream-in {n_in} blocks, stream-out {n_out} blocks, engaged at chunk "
@@ -671,7 +801,8 @@ def run_stream(torch, T, dev, kernels_out) -> None:
           f"{[r['active_blocks'] for r in chunks]}; alloc_overflow {sum(r['alloc_overflow'] for r in chunks)}; "
           f"tracking_lost_chunks {out.tracking_lost_chunks}; ATE {ate * 100:.4f} cm")
     phase("stream", "stage timing (CUDA events; streaming includes its host reads):\n" + bf.timing.report())
-    phase("stream", f"{len(sites)} host syncs at chunks {sync_chunks}; by site {by_site}")
+    phase("stream", f"{len(sites)} readbacks at chunks {sync_chunks}; by site {per_site}; ingest waits that "
+          f"blocked {dict(bf.ingest_waits)}")
     phase("stream", "runlog streaming steps " + json.dumps(recs))
     first_check = ac.streaming_check_every - 1
     if not recs or recs[0]["chunk"] != first_check:
@@ -1010,14 +1141,9 @@ def run_configs(torch, T, dev, kernels_out, seq, ref) -> None:
 
     ac = base.app
     d16 = framewire.frame_to_wire(seq.depth[0], seq.color[0])[0]
-    framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
-        times.append(time.perf_counter() - t0)
-    phase("configs", f"bilateral_wire on the host: {statistics.median(times) * 1e3:.2f} ms per {FULL[0]}x{FULL[1]} frame "
-          f"(median of 5)")
+    ms = host_ms(lambda: framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r))
+    phase("configs", f"bilateral_wire on the host (native: {framewire.have_native()}): {ms:.2f} ms per "
+          f"{FULL[0]}x{FULL[1]} frame (median of 5)")
 
     have = native.have_native()
     enc = sens.rvl_encode(d16)
@@ -1037,6 +1163,137 @@ def run_configs(torch, T, dev, kernels_out, seq, ref) -> None:
           f"{dec_t['python'][1]:.3f}; equal bytes {ok}")
     if not have or not ok or native.rvl_encode(d16) != enc:
         raise AssertionError(f"native codecs: built {have}, equal bytes {ok}")
+
+
+def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
+    """Phase 12: the ingest stage. The native converter against numpy; the
+    flagship pass with async ingest, with BF_SYNC_INGEST=1 and with
+    profile=True (equal digests); the filtered-depth pass on the native
+    bilateral; the two developer tools."""
+    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+    from bundlefusion_tpu_torch.io import framewire
+    from bundlefusion_tpu_torch.tools import offline_matching, profile_stages
+
+    ac = cfg.app
+    have = framewire.have_native()
+    phase("ingest", f"native wire converter built: {have} ({framewire.LIB_PATH}); OMP threads "
+          f"{os.environ.get('OMP_NUM_THREADS', 'default')}, {os.cpu_count()} CPUs")
+    if not have:
+        raise AssertionError("the native wire converter did not build")
+    depth, color = seq.depth[0], seq.color[0]
+    wire_nat = framewire.frame_to_wire2(depth, color, depth_min=ac.depth_min, depth_max=ac.depth_max)
+    wire_np = framewire._frame_to_wire2_np(depth, color, ac.depth_min, ac.depth_max)
+    equal_wire = all(a.tobytes() == b.tobytes() for a, b in zip(wire_nat, wire_np))
+    d16 = wire_nat[0]
+    bil_nat = framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
+    bil_np = framewire._bilateral_wire_np(d16, ac.depth_sigma_d, ac.depth_sigma_r)
+    diff = np.abs(bil_nat.astype(np.int64) - bil_np.astype(np.int64))
+    pack_equal = framewire.pack_depth12(d16).tobytes() == framewire._pack_depth12_np(d16).tobytes()
+    t = {
+        "frame_to_wire2": (host_ms(lambda: framewire.frame_to_wire2(depth, color, depth_min=ac.depth_min,
+                                                                    depth_max=ac.depth_max)),
+                           host_ms(lambda: framewire._frame_to_wire2_np(depth, color, ac.depth_min, ac.depth_max))),
+        "bilateral": (host_ms(lambda: framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)),
+                      host_ms(lambda: framewire._bilateral_wire_np(d16, ac.depth_sigma_d, ac.depth_sigma_r))),
+        "pack_depth12": (host_ms(lambda: framewire.pack_depth12(d16)),
+                         host_ms(lambda: framewire._pack_depth12_np(d16))),
+    }
+    phase("ingest", f"one {FULL[0]}x{FULL[1]} frame, host ms native / numpy (median of 5): "
+          + "; ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in t.items())
+          + f"; frame_to_wire2 equal bytes {equal_wire}, pack_depth12 equal bytes {pack_equal}; bilateral: "
+          f"{int((diff > 0).sum())} of {diff.size} pixels differ, max {int(diff.max())} mm, zero masks equal "
+          f"{np.array_equal(bil_nat == 0, bil_np == 0)}")
+    if not (equal_wire and pack_equal and diff.max() <= 1 and np.array_equal(bil_nat == 0, bil_np == 0)):
+        raise AssertionError("the native wire converter disagrees with numpy")
+
+    n = len(seq.poses)
+    runs = {}
+    # the last pass repeats the async one under the sync counter
+    for mode in ("async", "sync", "profile", "async, sync counter on"):
+        if mode == "sync":
+            os.environ["BF_SYNC_INGEST"] = "1"
+        sites = None
+        counted = {}
+        try:
+            reset_launches()
+            push = []
+            wrap = (lambda steady: counted.update(r=sync_sites(torch, steady))) if mode.startswith("async, ") else None
+            bf, dt = run_pass(T, seq, cfg, dev, push, wrap=wrap, profile=(mode == "profile"))
+            if counted:
+                sites = counted["r"]
+        finally:
+            os.environ.pop("BF_SYNC_INGEST", None)
+        launches = read_launches()
+        record_launches(kernels_out, f"ingest_{mode.split(',')[0]}", launches)
+        out = bf.outputs()
+        runs[mode] = dict(poses=out.poses, digests=state_digests(torch, bf), upload_bytes=bf.upload_bytes,
+                          report=bf.timing.report(), wire=(bf.chunk_frames, bf.S, bf._wire_dims))
+        phase("ingest", f"{mode} stage table:\n" + runs[mode]["report"])
+        phase("ingest", f"{mode}: {n / dt:.3f} fps ({dt:.3f} s push_frame -> flush; the caller's thread spent "
+              f"{sum(push):.3f} s in push_frame, max {1e3 * max(push):.2f} ms in one call); upload bytes first "
+              f"{bf.upload_bytes[0]:,}, steady {sorted(set(bf.upload_bytes[1:]))} over {len(bf.upload_bytes)} "
+              f"chunks; ingest waits that blocked {dict(bf.ingest_waits)}; launches {launches}"
+              + ("" if sites is None else f"; readbacks {len(sites)} {by_site(sites)}"))
+        if sites:
+            raise AssertionError(f"readbacks in the async steady state: {by_site(sites)}")
+        if bf._async_ingest != mode.startswith("async"):
+            raise AssertionError(f"{mode}: async ingest is {bf._async_ingest}")
+        if launches["tsdf_integrate"] != len(bf.upload_bytes) or launches["preprocess"] != len(bf.upload_bytes):
+            raise AssertionError(f"{mode}: expected one K1 and one K2 launch per chunk: {launches}")
+        del bf, out
+    a = runs["async"]
+    cf, sub, dims = a["wire"]
+    want = [pipe._wire_nbytes(cf, *dims), pipe._wire_nbytes(sub, *dims)]
+    phase("ingest", f"upload bytes predicted first {want[0]:,} / steady {want[1]:,} (12-bit depth {dims[-1]})")
+    if a["upload_bytes"][0] != want[0] or set(a["upload_bytes"][1:]) != {want[1]}:
+        raise AssertionError(f"upload bytes {a['upload_bytes']} against {want}")
+    for mode in ("sync", "profile", "async, sync counter on"):
+        r = runs[mode]
+        diff = sorted(k for k in a["digests"] if a["digests"][k] != r["digests"].get(k))
+        same_poses = np.array_equal(a["poses"], r["poses"])
+        phase("ingest", f"{mode} against async: digests of {len(a['digests'])} state fields equal {not diff}, "
+              f"poses equal {same_poses}")
+        if diff or not same_poses:
+            raise AssertionError(f"{mode} ingest differs from async: {diff[:8]}")
+    phase("ingest", "(the profile pass's stages wait for the device at their end and are host-clock times; the "
+          "others are CUDA-event spans)")
+    del runs
+    torch.cuda.empty_cache()
+
+    fcfg = dataclasses.replace(cfg, app=dataclasses.replace(cfg.app, integrate_filtered_depth=True))
+    reset_launches()
+    bf, dt = run_pass(T, seq, fcfg, dev)
+    launches = read_launches()
+    record_launches(kernels_out, "filtered_native", launches)
+    out = bf.outputs()
+    m = min(len(out.poses), n)
+    ate = ate_rmse(out.poses[:m], seq.poses[:m], valid=out.valid[:m])
+    phase("ingest", f"filtered depth on the native bilateral: {n / dt:.3f} fps (phase 4: {ref['fps']:.3f}); ATE "
+          f"{ate * 100:.4f} cm; launches {launches}")
+    if ate > ATE_BAR:
+        raise AssertionError(f"filtered depth on the native bilateral: ATE {ate}")
+    del bf
+    torch.cuda.empty_cache()
+
+    times = profile_stages.main([str(FULL[0]), str(FULL[1]), "--device", str(dev), "--reps", "5"])
+    phase("ingest", "profile_stages at 640x480 (median of 5, CUDA events): " + json.dumps(times))
+    if not all(np.isfinite(v) and v > 0 for v in times.values()):
+        raise AssertionError(f"profile_stages: {times}")
+    torch.cuda.empty_cache()
+    root = os.path.join(OUT_DIR, "offline_matching")
+    shutil.rmtree(root, ignore_errors=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        offline_matching.main(["--synthetic", "8", "--frames", "0", "5", "--width", str(FULL[0]), "--height",
+                               str(FULL[1]), "--out", root, "--device", str(dev)])
+    text = buf.getvalue()
+    stats = json.loads(text[text.index("{"):])
+    phase("ingest", f"offline_matching on orbit frames 0 and 5 at 640x480: {json.dumps(stats)}; images "
+          f"{sorted(os.listdir(root))}")
+    if not (stats["keys_a"] > 0 and stats["keys_b"] > 0 and len(os.listdir(root)) == 4
+            and np.isfinite(stats["relative_rotation_rad"])):
+        raise AssertionError(f"offline_matching: {stats}")
 
 
 def main() -> int:
@@ -1073,6 +1330,7 @@ def main() -> int:
     timed("multiseq", run_multiseq, torch, T, dev, kern, ref)
     timed("sharded", run_sharded, torch, T, dev, kern, seq, cfg, ref)
     timed("configs", run_configs, torch, T, dev, kern, seq, ref)
+    timed("ingest", run_ingest, torch, T, dev, kern, seq, cfg, ref)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

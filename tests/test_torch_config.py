@@ -118,6 +118,7 @@ def test_streaming_check_runs_where_it_fires():
     frame = (np.full((48, 64), 2.0, np.float32), np.full((48, 64, 3), 0.5, np.float32))
     for _ in range(1 + 8 * c.bundling.submap_size):
         bf.push_frame(*frame)
+    bf.sync()  # the chunk steps run on the ingest worker
     assert bf.chunk_count == 8
     assert calls == [2, 5, 6, 7]
     assert tcfg.AppConfig().streaming_check_every == 16

@@ -110,3 +110,34 @@ def test_filters_match_jax(chunk):
     np.testing.assert_array_equal(np.asarray(rj.matches.idx_i), rt.matches.idx_i.numpy())
     np.testing.assert_allclose(np.asarray(rj.transform), rt.transform.numpy(), atol=1e-4, rtol=0)
     assert int(rt.pair_valid.sum()) >= 4
+
+
+@pytest.mark.parametrize("pair", [0, 3, 9])
+def test_filter_pair_matches_jax(chunk, pair):
+    """One pair through ``filter_pair`` on both sides (exact masks and counts,
+    transform within 1e-5), and the port's single pair equal to its row of
+    the batched filter."""
+    c = chunk
+    kj = jax.tree.map(jnp.asarray, c["keys"])
+    a, b = int(c["pa"][pair]), int(c["pb"][pair])
+    ka, kb = jax.tree.map(lambda x: x[a], kj), jax.tree.map(lambda x: x[b], kj)
+    m = jm.match_pair(ka, kb, BC_J)
+    cache = jax.tree.map(jnp.asarray, c["cache"])
+    rj = jf.filter_pair(ka.p3d[m.idx_i], kb.p3d[m.idx_j], m, jax.tree.map(lambda x: x[a], cache),
+                        jax.tree.map(lambda x: x[b], cache), c["cc"], BC_J, BC_J.min_matches_local)
+
+    tcache = interop.state_from_numpy(c["cache"], "cpu")
+    mt = tm.PairMatches(*(torch.as_tensor(np.array(x)) for x in m))
+    pa = torch.as_tensor(np.asarray(ka.p3d[m.idx_i]))
+    pb = torch.as_tensor(np.asarray(kb.p3d[m.idx_j]))
+    rt = tf.filter_pair(pa, pb, mt, FrameCache.index(tcache, a), FrameCache.index(tcache, b), c["cc"], BC_T,
+                        BC_T.min_matches_local)
+    assert bool(rj.pair_valid) == bool(rt.pair_valid)
+    assert int(rj.inlier_count) == int(rt.inlier_count)
+    for k in ("valid", "idx_i", "idx_j"):
+        np.testing.assert_array_equal(np.asarray(getattr(rj.matches, k)), getattr(rt.matches, k).numpy())
+    np.testing.assert_allclose(np.asarray(rj.transform), rt.transform.numpy(), atol=1e-5, rtol=0)
+    mb = tm.PairMatches(*(x[None] for x in (mt.idx_i, mt.idx_j, mt.dist, mt.valid)))
+    rb = tf.filter_pairs_batch(pa[None], pb[None], mb, FrameCache.index(tcache, [a]), FrameCache.index(tcache, [b]),
+                               c["cc"], BC_T, BC_T.min_matches_local)
+    assert torch.equal(rb.transform[0], rt.transform) and torch.equal(rb.matches.idx_i[0], rt.matches.idx_i)

@@ -143,6 +143,47 @@ def test_deintegrate_restores_weights_exactly(frames, prefilled):
     assert float(table_t.sdf[:-1][fresh].abs().max()) < 1e-6
 
 
+@pytest.mark.parametrize("recorded", [False, True])
+def test_deintegrate_matches_jax(frames, prefilled, recorded):
+    """Remove integrated frame 1 with ``deintegrate`` on both sides, without
+    and with a recorded update mask (every other entry)."""
+    f = frames
+    cap = APP_J.blocks_per_frame_cap
+    mask = (np.arange(cap) % 2 == 0) if recorded else None
+    args = (f["cam"],)
+    tj = jt.deintegrate(jax.tree.map(jnp.asarray, prefilled), jnp.asarray(f["depth"][1]), jnp.asarray(f["colf"][1]),
+                        jnp.asarray(f["poses"][1]), *args, APP_J, None if mask is None else jnp.asarray(mask))
+    table_t = _port_table(prefilled)
+    before = table_t.weight.clone()
+    t_t = tt.deintegrate(table_t, torch.as_tensor(f["depth"][1]), torch.as_tensor(f["c8"][1]),
+                         torch.as_tensor(f["poses"][1]), *args, APP_T, None if mask is None else torch.as_tensor(mask))
+    assert int((t_t.weight != before).sum()) > 1000
+    _assert_tables(tj, t_t)
+
+
+def test_integrate_then_deintegrate_restores_weights_exactly(frames, prefilled):
+    """``integrate`` then ``deintegrate`` with the recorded mask (K1, one
+    row each way) leaves every weight as it was."""
+    f = frames
+    table_t = _port_table(prefilled)
+    before = table_t.weight.clone()
+    d, c, T = torch.as_tensor(f["depth"][4]), torch.as_tensor(f["c8"][4]), torch.as_tensor(f["poses"][4])
+    table_t, diag = tt.integrate(table_t, d, c, T, f["cam"], APP_T)
+    assert int(diag.upd_mask.sum()) > 50 and not torch.equal(table_t.weight, before)
+    table_t = tt.deintegrate(table_t, d, c, T, f["cam"], APP_T, diag.upd_mask)
+    assert torch.equal(table_t.weight[:-1], before[:-1])
+
+
+def test_visible_blocks_matches_jax(frames, prefilled):
+    f = frames
+    for i in (0, 3):
+        sj, mj = jt.visible_blocks(jax.tree.map(jnp.asarray, prefilled), jnp.asarray(f["poses"][i]), f["cam"], APP_J)
+        st, mt = tt.visible_blocks(_port_table(prefilled), torch.as_tensor(f["poses"][i]), f["cam"], APP_T)
+        np.testing.assert_array_equal(np.asarray(mj), mt.numpy())
+        np.testing.assert_array_equal(np.asarray(sj), st.numpy())
+        assert st.dtype == torch.int32 and int(mt.sum()) > 0
+
+
 def test_fuse_batch_matches_jax(frames, prefilled):
     """De-integrate frames at their old poses, re-integrate at moved poses,
     and integrate new frames, all in one fuse_batch, on both sides."""

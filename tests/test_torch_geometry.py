@@ -34,6 +34,7 @@ def _close(j, t, atol=1e-6):
 
 CASES = {
     "hat": lambda m, x: m.hat(x[..., :3]),
+    "vee": lambda m, x: m.vee(m.so3_exp(x[..., :3]) + m.hat(x[..., 3:])),
     "so3_exp": lambda m, x: m.so3_exp(x[..., :3]),
     "se3_exp": lambda m, x: m.se3_exp(x),
     "so3_log": lambda m, x: m.so3_log(m.so3_exp(x[..., :3])),
@@ -99,6 +100,7 @@ def test_camera_matches_jax():
     jc = seq.camera
     tc = tcam.CameraModel.create(*jc)
     assert tuple(tc.scaled(32, 24)) == tuple(jc.scaled(32, 24))
+    assert np.array_equal(np.asarray(jc.matrix()), tc.matrix("cpu").numpy())
     _close(jcam.unproject(jc, jnp.asarray(seq.depth)), tcam.unproject(tc, torch.as_tensor(seq.depth)))
     pts = np.random.default_rng(5).standard_normal((100, 3)).astype(np.float32) + [0, 0, 2]
     juv, jok = jcam.project(jc, jnp.asarray(pts))
@@ -131,3 +133,12 @@ def test_synthetic_renderer_matches_jax():
     dd = np.abs(j.depth - t.depth)
     assert np.mean(dd < 1e-4) > 0.99
     assert np.mean(np.abs(j.color - t.color) < 1e-3) > 0.99
+
+
+def test_scene_normal_matches_jax():
+    p = np.random.default_rng(8).uniform([-1.5, -1.0, 0.5], [1.5, 1.0, 3.5], (4096, 3)).astype(np.float32)
+    j = np.asarray(jsyn.scene_normal(jnp.asarray(p)))
+    t = tsyn.scene_normal(torch.as_tensor(p)).numpy()
+    err = np.abs(j - t).max(axis=-1)
+    print(f"scene_normal: max |jax - port| {err.max():.3g}, {int((err > 0).sum())} of {len(p)} points differ")
+    np.testing.assert_allclose(j, t, atol=1e-5, rtol=0)

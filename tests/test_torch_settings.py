@@ -28,6 +28,7 @@ from bundlefusion_tpu_torch.bundle.checkpoint import load_checkpoint, save_check
 from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 from bundlefusion_tpu_torch.bundle.pipeline import run_sequence as port_run
 from bundlefusion_tpu_torch.config import tiny_test_config as t_tiny
+from bundlefusion_tpu_torch.io import framewire as tfw
 from util import cached_sequence
 
 W, H, N = 128, 96, 13
@@ -58,13 +59,16 @@ def runs(request):
     name = request.param
     seq = cached_sequence(N, width=W, height=H)
     mp = pytest.MonkeyPatch()
+    # both sides on their numpy wire (the native bilateral may land a pixel
+    # 1 mm apart; it is held to the numpy one in test_torch_ingest.py)
     mp.setattr(jfw, "_load", lambda: None)
+    mp.setattr(tfw, "_load", lambda: None)
     try:
         j = jax_run(Replayer(SyntheticSource(seq), batch_size=4), _cfg(j_tiny, name), anchor_pose=seq.poses[0])
+        t = port_run(Replayer(SyntheticSource(seq), batch_size=4), _cfg(t_tiny, name), anchor_pose=seq.poses[0],
+                     device="cpu")
     finally:
         mp.undo()
-    t = port_run(Replayer(SyntheticSource(seq), batch_size=4), _cfg(t_tiny, name), anchor_pose=seq.poses[0],
-                 device="cpu")
     return name, seq, j, t
 
 
@@ -137,4 +141,7 @@ def test_integration_resolution_checkpoint_round_trip(tmp_path):
     oa, ob = a.outputs(), b.outputs()
     assert np.array_equal(oa.poses, ob.poses) and np.array_equal(oa.valid, ob.valid)
     assert torch.equal(sa.table.weight[: sa.table.capacity], sb.table.weight[: sb.table.capacity])
+    # the restored pipeline has no overlap row on the device: its first
+    # chunk uploads every row, the uninterrupted one the S new rows
+    assert a.upload_bytes[1] < b.upload_bytes[0] == a.upload_bytes[0] and len(b.upload_bytes) == 1
 

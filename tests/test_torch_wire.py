@@ -1,9 +1,9 @@
 """The RGB (v1) wire, the wire-level bilateral, the RGB preprocessing and
 chunk entry, and the native .sens codecs: the port against the JAX package.
 
-Bars: wire conversion and the bilateral give equal bytes (the JAX side on
-its numpy branch, ``framewire._load`` -> None: its native converter
-disagrees with the numpy one, ROADMAP Queue 3); ``preprocess_frames`` as
+Bars: wire conversion and the bilateral give equal bytes (both sides on
+their numpy branch, ``framewire._load`` -> None: the JAX package's native
+converter disagrees with its numpy one, ROADMAP Queue 3); ``preprocess_frames`` as
 ``preprocess_frames_y`` in ``test_torch_preprocess.py`` (1e-5, intensity
 1e-6); the RGB chunk as the chunk bars of ``test_torch_pipeline.py``
 (validity, key counts and pair validity equal, filtered matches within 1%,
@@ -42,7 +42,10 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _jax_numpy_wire(monkeypatch):
+    """Both sides on their numpy branch; the port's native converter is held
+    to its numpy branch in ``test_torch_ingest.py``."""
     monkeypatch.setattr(jfw, "_load", lambda: None)
+    monkeypatch.setattr(tfw, "_load", lambda: None)
 
 
 def _frames(w, h, seed):
