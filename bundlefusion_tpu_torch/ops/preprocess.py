@@ -385,6 +385,38 @@ def bilinear_sample_matmul(img: torch.Tensor, uv: torch.Tensor) -> tuple[torch.T
     return val, inb
 
 
+def bilinear_sample_gather(img: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`bilinear_sample_matmul`'s result from the two rows and two
+    columns its tent weights leave non-zero, gathered: the same clamp,
+    in-bounds test and tent weights, and the same order of the contractions
+    (along v, then along u). ``img`` [L, H, W, C] and ``uv`` [L, D, 2] share
+    their leading axis; memory is [L, D, C] where the matmul form needs
+    [L, D, W, C]. The two forms may differ by an FMA's rounding."""
+    lead, h, w, c = img.shape
+    u = uv[..., 0]
+    v = uv[..., 1]
+    inb = (u >= 0.0) & (u < w - 1.0 + 1e-4) & (v >= 0.0) & (v < h - 1.0 + 1e-4)
+    uc = torch.clamp(u, 0.0, w - 1.001)
+    vc = torch.clamp(v, 0.0, h - 1.001)
+    # a NaN coordinate gathers pixel 0 and keeps NaN weights, as the matmul
+    # form's NaN tent rows make its value NaN
+    u0 = torch.nan_to_num(torch.floor(uc), nan=0.0)
+    v0 = torch.nan_to_num(torch.floor(vc), nan=0.0)
+    tv0 = torch.clamp(1.0 - torch.abs(vc - v0), min=0.0)[..., None]
+    tv1 = torch.clamp(1.0 - torch.abs(vc - (v0 + 1.0)), min=0.0)[..., None]
+    tu0 = torch.clamp(1.0 - torch.abs(uc - u0), min=0.0)[..., None]
+    tu1 = torch.clamp(1.0 - torch.abs(uc - (u0 + 1.0)), min=0.0)[..., None]
+    flat = img.reshape(lead, h * w, c)
+    base = v0.to(torch.int64) * w + u0.to(torch.int64)
+
+    def pixel(offset):
+        return torch.gather(flat, 1, (base + offset)[..., None].expand(-1, -1, c))
+
+    col0 = tv0 * pixel(0) + tv1 * pixel(w)
+    col1 = tv0 * pixel(1) + tv1 * pixel(w + 1)
+    return col0 * tu0 + col1 * tu1, inb
+
+
 def nearest_sample(img: torch.Tensor, uv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Nearest-neighbour sample of [H, W(, C)] at uv [..., 2] -> (values, mask)."""
     h, w = img.shape[0], img.shape[1]

@@ -16,7 +16,7 @@ import torch
 from ..config import BundlingConfig
 from ..geometry import se3
 from ..geometry.camera import CameraModel, project
-from ..ops.preprocess import FrameCache, bilinear_sample_matmul
+from ..ops.preprocess import FrameCache, bilinear_sample_gather
 
 
 @dataclass
@@ -99,7 +99,9 @@ def _dense_pair_system(Ta, Tb, cache_a: FrameCache, cache_b: FrameCache, cam: Ca
         [cache_b.points, cache_b.normals, cache_b.intensity[..., None], cache_b.grad, cache_b.depth[..., None]],
         dim=-1,
     )
-    samp, inb = bilinear_sample_matmul(stack_b, uv)
+    # the matmul form's [P, M, W, C] product does not fit the card at the
+    # global solve's P (every slot of the dense-pair list)
+    samp, inb = bilinear_sample_gather(stack_b, uv)
     q_b = samp[..., 0:3]
     n_b = samp[..., 3:6]
     i_b = samp[..., 6]

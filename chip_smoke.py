@@ -79,8 +79,34 @@ exits non-zero; there is no CPU fallback):
                 filtered-depth pass on the native bilateral (fps, ATE);
                 ``tools/profile_stages`` at 640x480 and
                 ``tools/offline_matching`` on two orbit frames.
+ 13. paths    — the paths no earlier phase runs, each at 640x480 on the
+                flagship configuration with async ingest and one K1 and one
+                K2 launch per chunk, each printing fps, ATE and validity with
+                the card's name and power limit:
+                the dense global BA (``use_dense_global``, all 4,096 slots of
+                the dense-pair list) on phase 4's frames: every chunk valid,
+                ATE <= 0.5 cm (its ratio to phase 4's printed: the
+                reference's colour term doubles it on this orbit), dense
+                pairs collected and none dropped, no readback, global_solve
+                against phase 4's, peak memory; then the out-and-back orbit
+                sparse only and dense: correspondences between keyframes 3 or
+                more apart, ATE < 2 cm and dense <= 1.10 x sparse + 1e-4 m
+                (``tests/test_loopclosure.py``'s bar on its scenario); then
+                at 128x96 on the CPU (twins) against the card;
+                tracking loss: the out-and-back orbit (81 frames) with the
+                depth zeroed over three whole chunks: the lost flag is not
+                set before the third invalid chunk, is set on it and is
+                clear at the end, a relocalization, valid frames after;
+                noisy input (``apply_sensor_noise`` on phase 4's frames):
+                bench.py's ``ate_noisy_cm`` and ``noisy_valid_fraction``, no
+                lost chunk, ATE < 2 cm;
+                4 mm voxels (``voxel_size`` 0.004, ``truncation`` 0.02) at
+                262,144 blocks and ``blocks_per_frame_cap`` 4,096: the
+                runlog's ``alloc_overflow`` and ``upd_truncated`` (reported,
+                not asserted), active blocks, peak memory, ATE <= 0.5 cm,
+                render_preview at 320x240.
 
-Phases 6-12 set the kernels' launch counts to 0 before their run and read
+Phases 6-13 set the kernels' launch counts to 0 before their run and read
 them after it: each of their paths must launch both kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
@@ -127,6 +153,11 @@ STREAM = dict(frames=241, x_span=3.0, streaming_radius=2.5, block_capacity=4480,
 OUT_DIR = "chiprun_out"
 ATE_BAR = 0.005  # m, on the clean synthetic orbit at 640x480 (phases 9-11)
 KEEP_BYTES = 48 << 20  # larger app outputs are checked, then deleted
+# phase 13's tracking loss: the out-and-back orbit, long enough that the
+# depth can be zeroed over three whole chunks (submap 10: chunks 2 and 3 have
+# no depth at all, chunk 4 only in its last frame, 50) and the return
+# relocalizes against the keyframes of the way out
+TRACK = dict(frames=81, blackout=(20, 50))
 
 # The least time the card could take (the larger of bytes over the memory
 # rate and operations over their unit's rate). Published peaks of one H100
@@ -493,7 +524,7 @@ def run_slice(torch, T, dev, kernels_out):
         raise AssertionError(f"flagship ATE {ate * 100:.4f} cm > 0.5 cm")
     if any(r["patch_overflow"] for r in recs):
         raise AssertionError("patch_overflow is not 0")
-    ref = dict(poses=out.poses, valid=out.valid, fps=FLAGSHIP_FRAMES / dt,
+    ref = dict(poses=out.poses, valid=out.valid, fps=FLAGSHIP_FRAMES / dt, ate=ate,
                global_solve_ms=bf.timing.summary()["global_solve"]["mean_ms"])
     del bf
 
@@ -845,9 +876,10 @@ def run_stream(torch, T, dev, kernels_out) -> None:
         raise AssertionError(f"the corridor is not deterministic: first difference {diff}, meshes equal {same_mesh}")
 
 
-def blackout_sequence(w: int, h: int, dev, num_frames: int = 41):
+def out_and_back_sequence(w: int, h: int, dev, num_frames: int = 41, blackout: tuple[int, int] | None = (20, 24)):
     """The JAX package's out-and-back orbit (``tests/test_loopclosure.py``)
-    rendered at w x h, with the depth blacked out at frames 20..23."""
+    rendered at w x h, with the depth blacked out over the frames
+    ``blackout`` (start, stop), 20..23 unless given; None keeps every frame."""
     from bundlefusion_tpu_torch.geometry.camera import CameraModel
     from bundlefusion_tpu_torch.io.synthetic import orbit_poses, render_sequence
 
@@ -856,8 +888,10 @@ def blackout_sequence(w: int, h: int, dev, num_frames: int = 41):
     base = orbit_poses(num_frames, radius=0.45, seed=3)
     half = num_frames // 2
     seq = render_sequence(np.concatenate([base[: half + 1], base[half - 1 :: -1]])[:num_frames], cam, device=dev)
+    if blackout is None:
+        return seq
     depth = seq.depth.copy()
-    depth[20:24] = 0.0
+    depth[slice(*blackout)] = 0.0
     return seq._replace(depth=depth)
 
 
@@ -865,7 +899,7 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
     """Phase 7: relocalization after a depth blackout, and its aftermath."""
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
 
-    seq = blackout_sequence(*FULL, dev)
+    seq = out_and_back_sequence(*FULL, dev)
     cfg = flagship_config(T)
     reset_launches()
     bf, dt = run_pass(T, seq, cfg, dev)
@@ -890,7 +924,7 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
                              f"post-cut ATE {ate_tail * 100:.3f} cm")
     del bf
 
-    sseq = blackout_sequence(SMALL["width"], SMALL["height"], dev)
+    sseq = out_and_back_sequence(SMALL["width"], SMALL["height"], dev)
     scfg = small_config(T)
     runs = {}
     for d in ("cpu", dev):
@@ -1296,6 +1330,197 @@ def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
         raise AssertionError(f"offline_matching: {stats}")
 
 
+def chunk_records(bf) -> list[dict]:
+    return [r for r in bf.runlog.records if "chunk_valid" in r]
+
+
+def one_launch_per_chunk(kernels_out, path: str, launches: dict[str, int], chunks: int) -> None:
+    record_launches(kernels_out, path, launches)
+    if launches["tsdf_integrate"] != chunks or launches["preprocess"] != chunks:
+        raise AssertionError(f"{path}: expected one K1 and one K2 launch per chunk: {launches} over {chunks} chunks")
+
+
+def ate_of(out, seq) -> float:
+    from bundlefusion_tpu_torch.eval.ate import ate_rmse
+
+    n = min(len(out.poses), len(seq.poses))
+    return ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
+
+
+def frames_valid(valid) -> str:
+    return "".join("1" if v else "0" for v in valid)
+
+
+def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
+    """Phase 13: the paths no earlier phase runs, each at 640x480 on the
+    flagship configuration with async ingest and one K1 and one K2 launch
+    per chunk: the dense global BA (no readback, its peak memory, the
+    out-and-back loop, CPU against the card at 128x96), tracking loss and
+    its clearing by relocalization, noisy sensor input and 4 mm voxels."""
+    from bundlefusion_tpu_torch.io.synthetic import apply_sensor_noise, generate_sequence
+
+    smi = smi_line()
+    n = len(seq.poses)
+    bc = cfg.bundling
+    dcfg = dataclasses.replace(cfg, bundling=dataclasses.replace(bc, use_dense_global=True))
+
+    # the dense global BA on phase 4's frames, under the sync counter
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    counted = {}
+    bf, dt = run_pass(T, seq, dcfg, dev, wrap=lambda steady: counted.update(r=sync_sites(torch, steady)))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = bf.outputs()
+    recs = chunk_records(bf)
+    g = bf.state.graph
+    cursor, overflow = int(g.dense_cursor), int(g.dense_overflow)
+    ate = ate_of(out, seq)
+    gs = bf.timing.summary()["global_solve"]["mean_ms"]
+    sites = counted["r"]
+    phase("paths", f"dense global BA ({smi}), flagship {n} frames: {n / dt:.3f} fps (phase 4: {ref['fps']:.3f}, "
+          f"under the sync counter); ATE {ate * 100:.4f} cm (phase 4: {ref['ate'] * 100:.4f}, ratio "
+          f"{ate / ref['ate']:.3f}); chunks valid "
+          f"{[int(r['chunk_valid']) for r in recs]}; dense pairs {cursor} of {bc.max_dense_pairs_global} slots, "
+          f"overflow {overflow}; global_solve {gs:.2f} ms per chunk (phase 4: {ref['global_solve_ms']:.2f}); peak "
+          f"memory {peak:.3f} GiB; {len(sites)} readbacks {by_site(sites)}; launches {launches}")
+    phase("paths", "dense global stage timing (CUDA events):\n" + bf.timing.report())
+    one_launch_per_chunk(kernels_out, "dense_global", launches, len(recs))
+    if sites:
+        raise AssertionError(f"readbacks in the dense global pass: {by_site(sites)}")
+    # (on this orbit the reference's own dense terms double the ATE: the
+    # colour term; ROADMAP Queue 3. The JAX test's 1.10 x bar is held on its
+    # own scenario, the out-and-back below)
+    if not all(r["chunk_valid"] for r in recs) or not ate <= ATE_BAR:
+        raise AssertionError(f"dense global: chunks valid {[r['chunk_valid'] for r in recs]}, ATE {ate}")
+    if cursor == 0 or overflow != 0:
+        raise AssertionError(f"dense global: cursor {cursor}, overflow {overflow}")
+    del bf, out, g
+
+    # the out-and-back orbit, sparse only and with the dense global BA: the
+    # return closes the loop against the first keyframes, and the dense terms
+    # keep the ATE within the JAX test's bar (tests/test_loopclosure.py)
+    lseq = out_and_back_sequence(*FULL, dev, blackout=None)
+    loop_ate = {}
+    for dense, c in ((False, cfg), (True, dcfg)):
+        reset_launches()
+        bf, dt = run_pass(T, lseq, c, dev)
+        launches = read_launches()
+        out = bf.outputs()
+        recs = chunk_records(bf)
+        corrs = bf.state.graph.corrs
+        loop = int(((corrs.weight > 0) & ((corrs.img_a - corrs.img_b).abs() >= 3)).sum())
+        cursor = int(bf.state.graph.dense_cursor)
+        loop_ate[dense] = ate = ate_of(out, lseq)
+        phase("paths", f"out-and-back orbit, use_dense_global={dense} ({smi}), {len(lseq.poses)} frames: "
+              f"{len(lseq.poses) / dt:.3f} fps; ATE {ate * 100:.4f} cm; frames valid {frames_valid(out.valid)}; "
+              f"{loop} weighted correspondences between keyframes 3 or more apart; dense pairs {cursor}; launches "
+              f"{launches}")
+        one_launch_per_chunk(kernels_out, f"out_and_back{'_dense' if dense else ''}", launches, len(recs))
+        if loop == 0 or cursor == 0 or out.tracking_lost_chunks != 0 or not ate < 0.02:
+            raise AssertionError(f"out-and-back: {loop} loop correspondences, cursor {cursor}, "
+                                 f"lost chunks {out.tracking_lost_chunks}, ATE {ate}")
+        del bf, out, corrs
+    if not loop_ate[True] <= 1.10 * loop_ate[False] + 1e-4:
+        raise AssertionError(f"out-and-back: dense ATE {loop_ate[True]} against sparse {loop_ate[False]}")
+
+    # the dense global BA at 128x96 on the CPU (twins) and on the card
+    scfg = small_config(T)
+    scfg = dataclasses.replace(scfg, bundling=dataclasses.replace(scfg.bundling, use_dense_global=True))
+    sseq = generate_sequence(SMALL["frames"], SMALL["width"], SMALL["height"], device=dev)
+    small = {}
+    for d in ("cpu", dev):
+        b, _ = run_pass(T, sseq, scfg, d)
+        small[str(d)] = (b, b.outputs())
+    (cb, co), (gb, go) = small["cpu"], small[str(dev)]
+    err = float(np.abs(co.poses - go.poses).max())
+    cursors = (int(cb.state.graph.dense_cursor), int(gb.state.graph.dense_cursor))
+
+    def masks(b):
+        return [(r["chunk_valid"], r["kf_valid"]) for r in chunk_records(b)]
+
+    phase("paths", f"dense global BA at {SMALL['width']}x{SMALL['height']}, {SMALL['frames']} frames, CPU against the "
+          f"card: masks equal {masks(cb) == masks(gb)}, dense cursors {cursors}, max |pose cpu - card| {err:.3g}")
+    if masks(cb) != masks(gb) or cursors[0] != cursors[1] or cursors[0] == 0 or err > 1e-4:
+        raise AssertionError(f"dense global at 128x96: CPU and card differ (pose error {err}, cursors {cursors})")
+    del small, cb, gb
+
+    # tracking loss: three whole chunks without depth, then the return
+    s = bc.submap_size
+    tseq = out_and_back_sequence(*FULL, dev, num_frames=TRACK["frames"], blackout=TRACK["blackout"])
+    reset_launches()
+    bf, dt = run_pass(T, tseq, cfg, dev)
+    launches = read_launches()
+    out = bf.outputs()
+    recs = chunk_records(bf)
+    lost = [bool(r["tracking_lost"]) for r in recs]
+    ok = np.array([bool(r["chunk_valid"]) for r in recs])
+    bad = np.flatnonzero(~ok)
+    reloc = int(bf.state.ctrl.reloc_events)
+    after = s * (int(bad[-1]) + 1) if len(bad) else 0
+    phase("paths", f"tracking loss ({smi}), out-and-back {len(tseq.poses)} frames with the depth zeroed over "
+          f"{TRACK['blackout'][0]}..{TRACK['blackout'][1] - 1}: {len(tseq.poses) / dt:.3f} fps; chunks valid "
+          f"{ok.astype(int).tolist()}; tracking_lost {[int(x) for x in lost]}; reloc "
+          f"{[int(r['reloc']) for r in recs]} ({reloc} events); lost chunks {out.tracking_lost_chunks}; frames valid "
+          f"{frames_valid(out.valid)}; ATE over the valid frames {ate_of(out, tseq) * 100:.4f} cm; launches {launches}")
+    one_launch_per_chunk(kernels_out, "tracking_loss", launches, len(recs))
+    first = int(bad[0]) if len(bad) else -1
+    run3 = len(bad) >= 3 and (bad[:3] == first + np.arange(3)).all()
+    if not (run3 and not any(lost[: first + 2]) and lost[first + 2] and not lost[-1]):
+        raise AssertionError(f"tracking loss: the flag's sequence {lost} over chunks valid {ok.tolist()}")
+    if reloc < 1 or not (ok[int(bad[-1]) + 1:].all() and out.valid[after:].all()):
+        raise AssertionError(f"tracking loss: {reloc} relocalizations, frames valid after {after}: "
+                             f"{frames_valid(out.valid[after:])}")
+    del bf, out
+
+    # noisy sensor input (bench.py's noisy pass) on phase 4's frames
+    t0 = time.perf_counter()
+    nseq = apply_sensor_noise(seq)
+    t_noise = time.perf_counter() - t0
+    reset_launches()
+    bf, dt = run_pass(T, nseq, cfg, dev)
+    launches = read_launches()
+    out = bf.outputs()
+    recs = chunk_records(bf)
+    ate = ate_of(out, nseq)
+    m = min(len(out.poses), n)
+    noisy = {"ate_noisy_cm": ate * 100, "noisy_valid_fraction": float(np.asarray(out.valid[:m]).mean())}
+    phase("paths", f"noisy input ({smi}), {n} frames (noise applied in {t_noise:.2f} s on the host): "
+          f"{n / dt:.3f} fps; {json.dumps(noisy)}; chunks valid {[int(r['chunk_valid']) for r in recs]}; lost "
+          f"chunks {out.tracking_lost_chunks}; launches {launches}")
+    one_launch_per_chunk(kernels_out, "noisy", launches, len(recs))
+    if out.tracking_lost_chunks != 0 or not ate < 0.02:
+        raise AssertionError(f"noisy input: lost chunks {out.tracking_lost_chunks}, ATE {ate * 100:.3f} cm")
+    del bf, out, nseq
+
+    # 4 mm voxels (the AppConfig defaults) at the flagship's capacities
+    mcfg = dataclasses.replace(cfg, app=dataclasses.replace(cfg.app, voxel_size=0.004, truncation=0.02))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    bf, dt = run_pass(T, seq, mcfg, dev)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = bf.outputs()
+    recs = chunk_records(bf)
+    ate = ate_of(out, seq)
+    pose = out.poses[-1]
+    bf.render_preview(pose)  # warm
+    ms = cuda_ms(torch, lambda: bf.render_preview(pose), n=5, batch=1)
+    ac = mcfg.app
+    phase("paths", f"4 mm voxels ({smi}), {n} frames, {ac.block_capacity} blocks, blocks_per_frame_cap "
+          f"{ac.blocks_per_frame_cap}: {n / dt:.3f} fps; ATE {ate * 100:.4f} cm; chunks valid "
+          f"{[int(r['chunk_valid']) for r in recs]}; alloc_overflow {sum(int(r['alloc_overflow']) for r in recs)} "
+          f"{[int(r['alloc_overflow']) for r in recs]}; upd_truncated {sum(int(r['upd_truncated']) for r in recs)} "
+          f"{[int(r['upd_truncated']) for r in recs]}; active blocks {int(bf.state.table.num_active())}; peak memory "
+          f"{peak:.3f} GiB; render_preview {ac.raycast_width}x{ac.raycast_height} {ms:.2f} ms (median of 5, host "
+          f"reads included); launches {launches}")
+    one_launch_per_chunk(kernels_out, "voxels_4mm", launches, len(recs))
+    if not all(r["chunk_valid"] for r in recs) or not out.valid.all() or not ate <= ATE_BAR:
+        raise AssertionError(f"4 mm voxels: chunks valid {[r['chunk_valid'] for r in recs]}, ATE {ate}")
+
+
 def main() -> int:
     import torch
 
@@ -1331,6 +1556,7 @@ def main() -> int:
     timed("sharded", run_sharded, torch, T, dev, kern, seq, cfg, ref)
     timed("configs", run_configs, torch, T, dev, kern, seq, ref)
     timed("ingest", run_ingest, torch, T, dev, kern, seq, cfg, ref)
+    timed("paths", run_paths, torch, T, dev, kern, seq, cfg, ref)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

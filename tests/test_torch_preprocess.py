@@ -104,3 +104,30 @@ def test_samplers_match_jax():
         vt, mt = getattr(tpp, fn)(torch.as_tensor(img), torch.as_tensor(uv))
         np.testing.assert_allclose(np.asarray(vj), vt.numpy(), atol=2e-6, rtol=0, err_msg=fn)
         np.testing.assert_array_equal(np.asarray(mj), mt.numpy(), err_msg=fn)
+
+
+def test_gather_sampler_matches_matmul_form():
+    """The dense BA's gather sampler against the matmul form it replaces
+    (and JAX's), batched over pairs, with coordinates on and just past every
+    border (the 1e-4 slack of the in-bounds test, the clamp to w - 1.001),
+    on integer pixels, out of the image and NaN. Bar: 2e-6 on values in
+    [0, 1), the two forms differ only where a matmul rounds through an FMA;
+    the in-bounds masks and the NaNs are equal."""
+    h, w = 24, 32
+    img = _img(4, (3, h, w, 5))
+    rng = np.random.default_rng(5)
+    edges_u = [-1.0, -1e-6, 0.0, 0.5, 3.0, w - 1.001, w - 1.0005, w - 1.0, w - 1.0 + 5e-5, w - 1.0 + 2e-4, w, 40.0]
+    edges_v = [-1.0, -1e-6, 0.0, 0.5, 3.0, h - 1.001, h - 1.0005, h - 1.0, h - 1.0 + 5e-5, h - 1.0 + 2e-4, h, 30.0]
+    grid = np.array([(u, v) for u in edges_u for v in edges_v], np.float32)
+    rand = (rng.random((3, 100, 2)) * [w + 2, h + 2] - 1).astype(np.float32)
+    uv = np.concatenate([np.broadcast_to(grid, (3, *grid.shape)), rand, np.full((3, 1, 2), np.nan, np.float32)], 1)
+    vg, mg = tpp.bilinear_sample_gather(torch.as_tensor(img), torch.as_tensor(uv))
+    vm, mm = tpp.bilinear_sample_matmul(torch.as_tensor(img), torch.as_tensor(uv))
+    assert vg.shape == vm.shape == (3, uv.shape[1], 5)
+    assert torch.equal(mg, mm)
+    assert torch.equal(torch.isnan(vg), torch.isnan(vm)) and bool(torch.isnan(vg[:, -1]).all())
+    np.testing.assert_allclose(vg[:, :-1].numpy(), vm[:, :-1].numpy(), atol=2e-6, rtol=0)
+    for i in range(3):
+        vj, mj = jpp.bilinear_sample_matmul(jnp.asarray(img[i]), jnp.asarray(uv[i, :-1]))
+        np.testing.assert_allclose(np.asarray(vj), vg[i, :-1].numpy(), atol=2e-6, rtol=0)
+        np.testing.assert_array_equal(np.asarray(mj), mg[i, :-1].numpy())

@@ -8,11 +8,14 @@ Queue 3: the global solves' f32 sums in another order stop at PCG's gate);
 on one keyframe graph carried across by ``interop``, the port's sharded
 solve within 2e-5 of the JAX package's sharded solve with equal validity,
 and within the JAX package's own 1e-3 of the port's serial solve
-(``tests/test_parallel.py``).
+(``tests/test_parallel.py``); the same with the dense terms
+(``use_dense_global``) on a 2-shard mesh, within 2e-5 of the JAX package's
+and apart from the sparse-only solve.
 """
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -105,3 +108,35 @@ def test_global_solve_sharded_matches_jax(runs):
     np.testing.assert_array_equal(g1.valid.numpy(), gs.valid.numpy())
     np.testing.assert_allclose(g1.poses.numpy(), gs.poses.numpy(), atol=1e-3, rtol=0)
     assert removed.dtype == torch.int32
+
+
+def test_dense_global_solve_sharded_matches_jax(runs):
+    """The sharded global solve with its dense terms on a 2-shard mesh, the
+    port against the JAX package on one graph carried across: the JAX run's,
+    keyframes 1 and 2 moved, its dense-pair list (3 live pairs) cut to its
+    first 64 slots, since every GN iteration evaluates every slot. Validity
+    and pruned weights equal, poses within 2e-5; the dense terms move the
+    solution away from the sparse-only solve."""
+    (bj, _), (bt, _) = runs
+    cut = 64
+    cfg_j, cfg_t = (dataclasses.replace(_cfg(tiny).bundling, use_dense_global=True, max_dense_pairs_global=cut)
+                    for tiny in (j_tiny, t_tiny))
+    g = jax.tree_util.tree_map(np.asarray, bj.graph)  # off the run's 8-device mesh
+    poses = g.poses.copy()
+    poses[1:3, :3, 3] += np.array([[0.01, -0.005, 0.004], [-0.006, 0.008, 0.003]], np.float32)
+    graph = g._replace(poses=poses, dense_pairs_a=g.dense_pairs_a[:cut], dense_pairs_b=g.dense_pairs_b[:cut],
+                       dense_pair_on=g.dense_pair_on[:cut])
+    assert int(graph.dense_cursor) == int(np.asarray(graph.dense_pair_on).sum()) == 3
+    gj, _ = jgg.global_solve_sharded(graph, jmesh.make_mesh(2), bj.cache_cam, cfg_j)
+    mesh = make_mesh(2, "cpu")
+    gs, _ = tgg.global_solve_sharded(interop.state_from_numpy(graph, "cpu"), mesh, bt.cache_cam, cfg_t)
+    np.testing.assert_array_equal(np.asarray(gj.valid), gs.valid.numpy())
+    np.testing.assert_array_equal(np.asarray(gj.corrs.weight), gs.corrs.weight.numpy())
+    err = float(np.abs(np.asarray(gj.poses) - gs.poses.numpy()).max())
+    sparse, _ = tgg.global_solve_sharded(interop.state_from_numpy(graph, "cpu"), mesh, bt.cache_cam,
+                                         dataclasses.replace(cfg_t, use_dense_global=False))
+    moved = float(np.abs(sparse.poses.numpy() - gs.poses.numpy()).max())
+    print(f"dense global_solve_sharded on 2 shards: max |pose jax - port| {err:.3g}; dense against sparse-only "
+          f"{moved:.3g}")
+    assert err <= 2e-5
+    assert moved > 1e-6
