@@ -3,7 +3,8 @@
 On a CUDA device a stage is bracketed by two ``torch.cuda.Event``s recorded
 on the current stream: the stage costs no host sync, and its time is the
 device's, resolved when :meth:`TimingLog.summary` is read. On the CPU the
-host clock is used. ``stage(name, block=True)`` waits for the device at the
+host clock is used. Each stage is also a ``torch.profiler.record_function``
+span of its name. ``stage(name, block=True)`` waits for the device at the
 stage's end and records the host clock from its start to then, as the JAX
 package's ``block=`` does: with every stage ending so, the device is idle
 when a stage starts, and a stage's time is really that stage's.
@@ -35,26 +36,27 @@ class TimingLog:
 
     @contextlib.contextmanager
     def stage(self, name: str, block: bool = False):
-        if self.cuda and not block:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        with torch.profiler.record_function(name):
+            if self.cuda and not block:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                try:
+                    yield
+                finally:
+                    end.record()
+                    with self._lock:
+                        self._pending.append((name, start, end))
+                return
+            t0 = time.perf_counter()
             try:
                 yield
             finally:
-                end.record()
-                with self._lock:
-                    self._pending.append((name, start, end))
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.cuda:
-                done = torch.cuda.Event()
-                done.record()
-                done.synchronize()
-            self.record(name, time.perf_counter() - t0)
+                if self.cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+                    done.synchronize()
+                self.record(name, time.perf_counter() - t0)
 
     def record(self, name: str, seconds: float) -> None:
         with self._lock:

@@ -105,8 +105,25 @@ exits non-zero; there is no CPU fallback):
                 runlog's ``alloc_overflow`` and ``upd_truncated`` (reported,
                 not asserted), active blocks, peak memory, ATE <= 0.5 cm,
                 render_preview at 320x240.
+ 14. bench    — two warm flagship passes of the bench's ``run_pass`` in
+                this process: one with the device's activity alone traced
+                (the busy share: the union of device intervals over the
+                pass's host seconds; the longest idle gaps; one K1 and one
+                K2 launch per chunk), one under torch.profiler with host ops
+                of every thread (kernel launches per frame, the top 10
+                device operations, the 5 longest idle gaps with the host
+                spans open during each, idle time by stage; the gzipped
+                trace goes to ``chiprun_out/``); a profile without device
+                events fails. Then the port's bench, ``python -m
+                bundlefusion_tpu_torch.bench`` (the counterpart of
+                bench.py), in a subprocess at the flagship (5 timed passes)
+                and at 320x240 with 32,768 blocks (3 passes): its result
+                line (the median fps) and diagnostics with the card's name
+                and power limit; ATE <= 0.5 cm, the noisy pass's valid
+                fraction 1.0, every chunk valid, and equal GN iterations and
+                blocks updated in every pass (the bench raises otherwise).
 
-Phases 6-13 set the kernels' launch counts to 0 before their run and read
+Phases 6-14 set the kernels' launch counts to 0 before their run and read
 them after it: each of their paths must launch both kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
@@ -116,8 +133,10 @@ The last two lines are a JSON object of the kernels' checks and timings and
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
+import gzip
 import hashlib
 import io
 import json
@@ -151,6 +170,7 @@ FULL = (640, 480)  # the flagship frame size of phases 6-11
 # so that the whole corridor (~1.1 M triangles) is meshed.
 STREAM = dict(frames=241, x_span=3.0, streaming_radius=2.5, block_capacity=4480, mc_max_triangles=1 << 23)
 OUT_DIR = "chiprun_out"
+HERE = os.path.dirname(os.path.abspath(__file__))
 ATE_BAR = 0.005  # m, on the clean synthetic orbit at 640x480 (phases 9-11)
 KEEP_BYTES = 48 << 20  # larger app outputs are checked, then deleted
 # phase 13's tracking loss: the out-and-back orbit, long enough that the
@@ -158,6 +178,15 @@ KEEP_BYTES = 48 << 20  # larger app outputs are checked, then deleted
 # no depth at all, chunk 4 only in its last frame, 50) and the return
 # relocalizes against the keyframes of the way out
 TRACK = dict(frames=81, blackout=(20, 50))
+# phase 14: the port's bench as a user runs it (a subprocess each), with
+# bench.py's two lines: the flagship and the 320x240, 32,768-block line
+BENCH_RUNS = (
+    ("flagship", {"BENCH_PASSES": "5"}),
+    ("320x240", {"BENCH_WIDTH": "320", "BENCH_HEIGHT": "240", "BENCH_BLOCKS": "32768", "BENCH_PASSES": "3"}),
+)
+# the diagnostics bench.py prints (bench.py:138-166), and the port's own
+BENCH_KEYS = ("ate_cm", "keyframes", "blocks", "gn_iters_per_sec", "voxel_updates_per_sec", "timing",
+              "ate_noisy_cm", "noisy_valid_fraction", "fps_passes", "device")
 
 # The least time the card could take (the larger of bytes over the memory
 # rate and operations over their unit's rate). Published peaks of one H100
@@ -183,14 +212,6 @@ K2_GEOM_FLOPS, K2_GEOM_MUFU = 64, 12
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(torch, fn, n: int = 20, batch: int = 5) -> float:
@@ -223,20 +244,12 @@ def host_ms(fn, n: int = 5) -> float:
     return 1e3 * statistics.median(times)
 
 
-def flagship_config(T):
-    """bench.py's flagship configuration (the reference's 512^3-equivalent volume)."""
-    return T.Config(
-        app=T.AppConfig(
-            input_width=640, input_height=480, integration_width=640, integration_height=480,
-            voxel_size=0.01, truncation=0.04, block_capacity=262144, blocks_per_frame_cap=4096,
-            raycast_width=320, raycast_height=240,
-        ),
-        bundling=T.BundlingConfig(
-            submap_size=10, max_num_images=128, max_keys_per_image=512, sift_octaves=3,
-            cache_width=80, cache_height=60, verify_width=80, verify_height=60,
-            verify_ok_fraction=0.45, verify_color_thresh=0.08,
-        ),
-    )
+def flagship_config():
+    """bench.py's flagship configuration (the reference's 512^3-equivalent
+    volume), as the port's bench defines it."""
+    from bundlefusion_tpu_torch import bench
+
+    return bench.bench_config(640, 480, 262144)
 
 
 def small_config(T):
@@ -273,7 +286,7 @@ def check_k1(torch, T, dev, depth, c8, poses, cam, label="K1 tsdf_fuse"):
     or the full-res colour of the v1 ring (the multi-sequence driver's)."""
     from bundlefusion_tpu_torch.fusion import blocks, tsdf
 
-    ac = flagship_config(T).app
+    ac = flagship_config().app
     n_new, n_old = 11, 10
     n = n_new + n_old
     order = torch.cat([torch.arange(n_old, n, device=dev), torch.arange(n_old, device=dev)])
@@ -339,7 +352,7 @@ def check_deintegrate(torch, T, dev, depth, c8, poses, cam):
     integrate followed by it restores the weights exactly."""
     from bundlefusion_tpu_torch.fusion import blocks, tsdf
 
-    ac = flagship_config(T).app
+    ac = flagship_config().app
     table = blocks.make_table(ac.block_capacity, dev)
     table, _ = tsdf.integrate_batch(table, depth[:11], c8[:11], poses[:11], torch.ones(11, dtype=torch.bool,
                                     device=dev), cam, ac)
@@ -391,7 +404,7 @@ def check_k2(torch, T, dev, depth, cam):
     """K2 over a chunk's 11 frames, without geometry (the main path) and with."""
     from bundlefusion_tpu_torch.ops import preprocess as pp
 
-    ac = flagship_config(T).app
+    ac = flagship_config().app
     sd, sr = ac.depth_sigma_d, ac.depth_sigma_r
     fd, pts, nrm = pp.fused_preprocess(depth, cam, sd, sr, geometry=True)
     fd2, pts2, nrm2 = pp._preprocess_chain_torch(depth, cam, sd, sr, 3, True)
@@ -430,7 +443,7 @@ def check_kernels(torch, T, dev):
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
     from bundlefusion_tpu_torch.ops import preprocess as pp
 
-    ac = flagship_config(T).app
+    ac = flagship_config().app
     seq = generate_sequence(21, 640, 480, radius=0.5, device=dev)
     wires = [wire(seq, i, ac) for i in range(21)]
     d16 = torch.as_tensor(np.stack([w[0] for w in wires]).view(np.int16), device=dev)
@@ -455,32 +468,27 @@ def check_kernels(torch, T, dev):
     return [k1, k2]
 
 
-def run_pass(T, seq, cfg, dev, push_seconds: list | None = None, wrap=None, **kw):
-    """push_frame -> flush over a whole sequence; returns (pipeline, seconds).
-    ``push_seconds`` collects the caller's seconds inside push_frame;
-    ``wrap(steady)`` runs the pushes and the flush (the sync counter); ``kw``
-    goes to the pipeline (``profile=``)."""
-    import torch
+def run_pass(seq, cfg, dev, push_seconds: list | None = None, wrap=None, profile: bool = False):
+    """The bench's pass (``bench.run_pass``: push_frame -> flush over a whole
+    sequence on a fresh pipeline; returns (pipeline, seconds)) with two
+    extras: ``push_seconds`` collects the caller's seconds inside
+    push_frame, and ``wrap(steady)`` runs the pushes and the flush (the sync
+    counter)."""
+    from bundlefusion_tpu_torch import bench
 
-    from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
+    def outer(bf, steady):
+        if push_seconds is not None:
+            push = bf.push_frame
 
-    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev, **kw)
-    if bf.device.type == "cuda":
-        torch.cuda.synchronize()
-
-    def steady():
-        for i in range(len(seq.poses)):
-            t1 = time.perf_counter()
-            bf.push_frame(seq.depth[i], seq.color[i])
-            if push_seconds is not None:
+            def timed_push(*frame):
+                t1 = time.perf_counter()
+                push(*frame)
                 push_seconds.append(time.perf_counter() - t1)
-        bf.flush()
 
-    t0 = time.perf_counter()
-    steady() if wrap is None else wrap(steady)
-    if bf.device.type == "cuda":
-        torch.cuda.synchronize()
-    return bf, time.perf_counter() - t0
+            bf.push_frame = timed_push
+        steady() if wrap is None else wrap(steady)
+
+    return bench.run_pass(seq, cfg, dev, profile=profile, wrap=outer)
 
 
 def run_slice(torch, T, dev, kernels_out):
@@ -489,15 +497,15 @@ def run_slice(torch, T, dev, kernels_out):
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 
-    cfg = flagship_config(T)
+    cfg = flagship_config()
     seq = generate_sequence(FLAGSHIP_FRAMES, 640, 480, radius=0.5, device=dev)
-    bf, dt_warm = run_pass(T, seq, cfg, dev)
+    bf, dt_warm = run_pass(seq, cfg, dev)
     del bf
     phase("slice", f"warm pass {dt_warm:.2f} s")
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    bf, dt = run_pass(T, seq, cfg, dev)
+    bf, dt = run_pass(seq, cfg, dev)
     out = bf.outputs()
     torch.cuda.synchronize()
     launches = read_launches()
@@ -531,11 +539,11 @@ def run_slice(torch, T, dev, kernels_out):
     # small configuration: CPU (twins) vs card (kernels), and card determinism
     scfg = small_config(T)
     sseq = generate_sequence(SMALL["frames"], SMALL["width"], SMALL["height"], device=dev)
-    cpu_bf, _ = run_pass(T, sseq, scfg, "cpu")
+    cpu_bf, _ = run_pass(sseq, scfg, "cpu")
     cpu_out = cpu_bf.outputs()
     gpu = []
     for _ in range(2):
-        b, _ = run_pass(T, sseq, scfg, dev)
+        b, _ = run_pass(sseq, scfg, dev)
         gpu.append((b, b.outputs()))
     (g1, o1), (g2, o2) = gpu
 
@@ -785,7 +793,7 @@ def run_stream(torch, T, dev, kernels_out) -> None:
     from bundlefusion_tpu_torch.io import ply
     from bundlefusion_tpu_torch.io.synthetic import generate_corridor_sequence
 
-    base = flagship_config(T)
+    base = flagship_config()
     cfg = dataclasses.replace(base, app=dataclasses.replace(base.app, **{
         k: STREAM[k] for k in ("streaming_radius", "block_capacity", "mc_max_triangles")}))
     ac = cfg.app
@@ -900,9 +908,9 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
 
     seq = out_and_back_sequence(*FULL, dev)
-    cfg = flagship_config(T)
+    cfg = flagship_config()
     reset_launches()
-    bf, dt = run_pass(T, seq, cfg, dev)
+    bf, dt = run_pass(seq, cfg, dev)
     t0 = time.perf_counter()
     out = bf.outputs()  # finalize(): revalidation, then the re-integration service
     torch.cuda.synchronize()
@@ -928,7 +936,7 @@ def run_reloc(torch, T, dev, kernels_out) -> None:
     scfg = small_config(T)
     runs = {}
     for d in ("cpu", dev):
-        b, _ = run_pass(T, sseq, scfg, d)
+        b, _ = run_pass(sseq, scfg, d)
         runs[str(d)] = (b, b.outputs())
     (cb, co), (gb, go) = runs["cpu"], runs[str(dev)]
     err = float(np.abs(co.poses - go.poses).max())
@@ -946,7 +954,7 @@ def run_app(torch, T, dev, kernels_out) -> None:
     from bundlefusion_tpu_torch.io import sens
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 
-    cfg = flagship_config(T)
+    cfg = flagship_config()
     root = os.path.join(OUT_DIR, "app")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
@@ -1028,7 +1036,7 @@ def run_multiseq(torch, T, dev, kernels_out, ref) -> None:
     from bundlefusion_tpu_torch.parallel.mesh import make_mesh
     from bundlefusion_tpu_torch.parallel.spmd_pipeline import ShardedRun, extract_mesh_for, run_sequences_sharded
 
-    cfg = flagship_config(T)
+    cfg = flagship_config()
     seqs = [generate_sequence(FLAGSHIP_FRAMES, *FULL, seed=s, radius=0.5, device=dev) for s in (0, 1)]
     mesh = make_mesh(2, "cuda")
     phase("multiseq", f"mesh {mesh!r}")
@@ -1149,7 +1157,7 @@ def run_configs(torch, T, dev, kernels_out, seq, ref) -> None:
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
     from bundlefusion_tpu_torch.io import framewire, native, sens
 
-    base = flagship_config(T)
+    base = flagship_config()
     wi, hi = FULL[0] // 2, FULL[1] // 2
     settings = {
         "filtered_depth": dict(integrate_filtered_depth=True),
@@ -1158,7 +1166,7 @@ def run_configs(torch, T, dev, kernels_out, seq, ref) -> None:
     for name, change in settings.items():
         cfg = dataclasses.replace(base, app=dataclasses.replace(base.app, **change))
         reset_launches()
-        bf, dt = run_pass(T, seq, cfg, dev)
+        bf, dt = run_pass(seq, cfg, dev)
         launches = read_launches()
         record_launches(kernels_out, name, launches)
         out = bf.outputs()
@@ -1253,7 +1261,7 @@ def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
             reset_launches()
             push = []
             wrap = (lambda steady: counted.update(r=sync_sites(torch, steady))) if mode.startswith("async, ") else None
-            bf, dt = run_pass(T, seq, cfg, dev, push, wrap=wrap, profile=(mode == "profile"))
+            bf, dt = run_pass(seq, cfg, dev, push, wrap=wrap, profile=(mode == "profile"))
             if counted:
                 sites = counted["r"]
         finally:
@@ -1297,7 +1305,7 @@ def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
 
     fcfg = dataclasses.replace(cfg, app=dataclasses.replace(cfg.app, integrate_filtered_depth=True))
     reset_launches()
-    bf, dt = run_pass(T, seq, fcfg, dev)
+    bf, dt = run_pass(seq, fcfg, dev)
     launches = read_launches()
     record_launches(kernels_out, "filtered_native", launches)
     out = bf.outputs()
@@ -1340,13 +1348,6 @@ def one_launch_per_chunk(kernels_out, path: str, launches: dict[str, int], chunk
         raise AssertionError(f"{path}: expected one K1 and one K2 launch per chunk: {launches} over {chunks} chunks")
 
 
-def ate_of(out, seq) -> float:
-    from bundlefusion_tpu_torch.eval.ate import ate_rmse
-
-    n = min(len(out.poses), len(seq.poses))
-    return ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
-
-
 def frames_valid(valid) -> str:
     return "".join("1" if v else "0" for v in valid)
 
@@ -1357,9 +1358,10 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     per chunk: the dense global BA (no readback, its peak memory, the
     out-and-back loop, CPU against the card at 128x96), tracking loss and
     its clearing by relocalization, noisy sensor input and 4 mm voxels."""
+    from bundlefusion_tpu_torch import bench
     from bundlefusion_tpu_torch.io.synthetic import apply_sensor_noise, generate_sequence
 
-    smi = smi_line()
+    smi = bench.device_line(dev)
     n = len(seq.poses)
     bc = cfg.bundling
     dcfg = dataclasses.replace(cfg, bundling=dataclasses.replace(bc, use_dense_global=True))
@@ -1369,14 +1371,14 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     counted = {}
-    bf, dt = run_pass(T, seq, dcfg, dev, wrap=lambda steady: counted.update(r=sync_sites(torch, steady)))
+    bf, dt = run_pass(seq, dcfg, dev, wrap=lambda steady: counted.update(r=sync_sites(torch, steady)))
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = bf.outputs()
     recs = chunk_records(bf)
     g = bf.state.graph
     cursor, overflow = int(g.dense_cursor), int(g.dense_overflow)
-    ate = ate_of(out, seq)
+    ate = bench.ate_of(out, seq)
     gs = bf.timing.summary()["global_solve"]["mean_ms"]
     sites = counted["r"]
     phase("paths", f"dense global BA ({smi}), flagship {n} frames: {n / dt:.3f} fps (phase 4: {ref['fps']:.3f}, "
@@ -1405,14 +1407,14 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     loop_ate = {}
     for dense, c in ((False, cfg), (True, dcfg)):
         reset_launches()
-        bf, dt = run_pass(T, lseq, c, dev)
+        bf, dt = run_pass(lseq, c, dev)
         launches = read_launches()
         out = bf.outputs()
         recs = chunk_records(bf)
         corrs = bf.state.graph.corrs
         loop = int(((corrs.weight > 0) & ((corrs.img_a - corrs.img_b).abs() >= 3)).sum())
         cursor = int(bf.state.graph.dense_cursor)
-        loop_ate[dense] = ate = ate_of(out, lseq)
+        loop_ate[dense] = ate = bench.ate_of(out, lseq)
         phase("paths", f"out-and-back orbit, use_dense_global={dense} ({smi}), {len(lseq.poses)} frames: "
               f"{len(lseq.poses) / dt:.3f} fps; ATE {ate * 100:.4f} cm; frames valid {frames_valid(out.valid)}; "
               f"{loop} weighted correspondences between keyframes 3 or more apart; dense pairs {cursor}; launches "
@@ -1431,7 +1433,7 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     sseq = generate_sequence(SMALL["frames"], SMALL["width"], SMALL["height"], device=dev)
     small = {}
     for d in ("cpu", dev):
-        b, _ = run_pass(T, sseq, scfg, d)
+        b, _ = run_pass(sseq, scfg, d)
         small[str(d)] = (b, b.outputs())
     (cb, co), (gb, go) = small["cpu"], small[str(dev)]
     err = float(np.abs(co.poses - go.poses).max())
@@ -1450,7 +1452,7 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     s = bc.submap_size
     tseq = out_and_back_sequence(*FULL, dev, num_frames=TRACK["frames"], blackout=TRACK["blackout"])
     reset_launches()
-    bf, dt = run_pass(T, tseq, cfg, dev)
+    bf, dt = run_pass(tseq, cfg, dev)
     launches = read_launches()
     out = bf.outputs()
     recs = chunk_records(bf)
@@ -1463,7 +1465,7 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
           f"{TRACK['blackout'][0]}..{TRACK['blackout'][1] - 1}: {len(tseq.poses) / dt:.3f} fps; chunks valid "
           f"{ok.astype(int).tolist()}; tracking_lost {[int(x) for x in lost]}; reloc "
           f"{[int(r['reloc']) for r in recs]} ({reloc} events); lost chunks {out.tracking_lost_chunks}; frames valid "
-          f"{frames_valid(out.valid)}; ATE over the valid frames {ate_of(out, tseq) * 100:.4f} cm; launches {launches}")
+          f"{frames_valid(out.valid)}; ATE over the valid frames {bench.ate_of(out, tseq) * 100:.4f} cm; launches {launches}")
     one_launch_per_chunk(kernels_out, "tracking_loss", launches, len(recs))
     first = int(bad[0]) if len(bad) else -1
     run3 = len(bad) >= 3 and (bad[:3] == first + np.arange(3)).all()
@@ -1479,11 +1481,11 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     nseq = apply_sensor_noise(seq)
     t_noise = time.perf_counter() - t0
     reset_launches()
-    bf, dt = run_pass(T, nseq, cfg, dev)
+    bf, dt = run_pass(nseq, cfg, dev)
     launches = read_launches()
     out = bf.outputs()
     recs = chunk_records(bf)
-    ate = ate_of(out, nseq)
+    ate = bench.ate_of(out, nseq)
     m = min(len(out.poses), n)
     noisy = {"ate_noisy_cm": ate * 100, "noisy_valid_fraction": float(np.asarray(out.valid[:m]).mean())}
     phase("paths", f"noisy input ({smi}), {n} frames (noise applied in {t_noise:.2f} s on the host): "
@@ -1499,12 +1501,12 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    bf, dt = run_pass(T, seq, mcfg, dev)
+    bf, dt = run_pass(seq, mcfg, dev)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     out = bf.outputs()
     recs = chunk_records(bf)
-    ate = ate_of(out, seq)
+    ate = bench.ate_of(out, seq)
     pose = out.poses[-1]
     bf.render_preview(pose)  # warm
     ms = cuda_ms(torch, lambda: bf.render_preview(pose), n=5, batch=1)
@@ -1521,6 +1523,292 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
         raise AssertionError(f"4 mm voxels: chunks valid {[r['chunk_valid'] for r in recs]}, ATE {ate}")
 
 
+def bench_subprocess(name: str, env_extra: dict, smi: str) -> dict:
+    """``python -m bundlefusion_tpu_torch.bench`` as a user runs it; its
+    output goes to ``chiprun_out/bench_<name>.log``. Checks the result
+    line's keys and median, every diagnostic key of bench.py and the port's,
+    the ATE, the noisy pass and every chunk's validity. The bench itself
+    raises when a pass counts other GN iterations or blocks updated."""
+    env = {**os.environ, **env_extra}
+    passes = int(env.get("BENCH_PASSES", 5))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bundlefusion_tpu_torch.bench"], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"bench_{name}.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    diag = json.loads([line for line in proc.stderr.splitlines() if line.startswith("{")][-1])
+    fps = diag["fps_passes"]
+    lo, hi = min(fps), max(fps)
+    shown = {k: v for k, v in diag.items() if k != "timing"}
+    phase("bench", f"{name} ({smi}; {secs:.1f} s in the subprocess): {json.dumps(result)}")
+    phase("bench", f"{name} diagnostics: {json.dumps(shown)}; median {statistics.median(fps):.3f} fps, range "
+          f"{lo:.3f}-{hi:.3f} ({(hi - lo) / statistics.median(fps) * 100:.1f}% of the median); GN iterations and "
+          f"blocks updated equal in all {passes + 1} passes")
+    for which in ("warm_profiled", "timed"):
+        table = {k: round(v["mean_ms"], 2) for k, v in diag["timing"][which].items()}
+        phase("bench", f"{name} {which} stage means (ms): {json.dumps(table)}")
+    if set(result) != {"metric", "value", "unit", "vs_baseline"} or result["metric"] != "end_to_end_fps":
+        raise AssertionError(f"bench {name}: result line {result}")
+    if len(fps) != passes or result["value"] != round(statistics.median(fps), 2):
+        raise AssertionError(f"bench {name}: value {result['value']} is not the median of {fps}")
+    missing = [k for k in BENCH_KEYS if k not in diag]
+    if missing:
+        raise AssertionError(f"bench {name}: diagnostics lack {missing}")
+    if not (diag["ate_cm"] <= 0.5 and diag["noisy_valid_fraction"] == 1.0 and all(diag["chunks_valid"])):
+        raise AssertionError(f"bench {name}: ATE {diag['ate_cm']} cm, noisy valid fraction "
+                             f"{diag['noisy_valid_fraction']}, chunks valid {diag['chunks_valid']}")
+    return dict(result=result, diagnostics=shown, seconds=secs)
+
+
+def innermost_spans(spans: list, points: list) -> dict:
+    """For host spans (start, end, name) of one thread, which nest, and
+    points (t, key): {key: name of the innermost span holding t}."""
+    spans = sorted(spans, key=lambda s: (s[0], -s[1]))
+    out, stack, i = {}, [], 0
+    for t, key in sorted(points):
+        while i < len(spans) and spans[i][0] <= t:
+            while stack and stack[-1][1] <= spans[i][0]:
+                stack.pop()
+            stack.append(spans[i])
+            i += 1
+        while stack and stack[-1][1] < t:
+            stack.pop()
+        if stack:
+            out[key] = stack[-1][2]
+    return out
+
+
+def short_kernel(name: str) -> str:
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for sep in ("<", "("):
+        name = name.split(sep)[0]
+    return name[:70]
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_events(prof, path: str) -> list:
+    """The complete events of a torch.profiler run, read back from its
+    chrome trace, which is written to ``path``."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+
+
+def busy_intervals(dev: list, w0: float, w1: float) -> list:
+    """The union of the device events' intervals (us), clipped to [w0, w1]."""
+    merged = []
+    for s, e in sorted((max(float(x["ts"]), w0), min(float(x["ts"]) + float(x["dur"]), w1)) for x in dev):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return merged
+
+
+def summarize_trace(events: list, span: str, frames: int) -> dict:
+    """The device profile of one pass from a torch.profiler trace with host
+    ops: the window is the host span ``span`` (the first push_frame to the
+    final synchronize). Busy share: the union of kernel, memcpy and memset
+    intervals over the window; launches per frame; the device operations
+    (kernels grouped by the host op that launched them, found through the
+    launch's correlation id) by total time; the longest idle gaps, each with
+    the host spans open at its middle on every thread."""
+    win = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == span]
+    if len(win) != 1:
+        raise AssertionError(f"the trace holds {len(win)} '{span}' spans")
+    w0, w1 = float(win[0]["ts"]), float(win[0]["ts"]) + float(win[0]["dur"])
+    caller = win[0]["tid"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS and w0 <= float(e["ts"]) < w1]
+    if not dev:
+        raise AssertionError(f"the profile holds no device event in the pass ({(w1 - w0) / 1e3:.1f} ms)")
+    host = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")]
+    by_tid: dict = {}
+    for e in host:
+        by_tid.setdefault(e["tid"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]))
+    # the host op that launched each kernel: the innermost cpu_op around its runtime call
+    launch_at: dict = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launch_at.setdefault(e["tid"], []).append((float(e["ts"]), e["args"]["correlation"]))
+    op_of: dict = {}
+    for tid, points in launch_at.items():
+        ops = [sp for sp in by_tid.get(tid, []) if not sp[2].startswith(("cuda", "cu"))]
+        op_of.update(innermost_spans(ops, points))
+    groups: dict = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            op = op_of.get(e.get("args", {}).get("correlation"), "(launch not traced)")
+            key = f"{op} | {short_kernel(e['name'])}"
+        else:
+            key = e["name"]
+        g = groups.setdefault(key, [0.0, 0])
+        g[0] += float(e["dur"])
+        g[1] += 1
+    total = sum(g[0] for g in groups.values())
+    top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:10]
+    # busy intervals and idle gaps inside the window
+    merged = busy_intervals(dev, w0, w1)
+    busy = sum(e - s for s, e in merged)
+    edges = [w0] + [v for se in merged for v in se] + [w1]
+    all_gaps = [(edges[i + 1] - edges[i], edges[i]) for i in range(0, len(edges), 2)]
+    gaps = sorted(all_gaps, reverse=True)[:5]
+    # idle time by the pipeline stages open on the worker threads (the
+    # stages of one thread do not overlap)
+    stages = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["tid"] != caller:
+            stages.setdefault(e["tid"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]))
+    for spans in stages.values():
+        spans.sort()
+    starts = {tid: [sp[0] for sp in spans] for tid, spans in stages.items()}
+    idle_by_stage: dict = {}
+    for length, start in all_gaps:
+        mid, names = start + length / 2, []
+        for tid, spans in stages.items():
+            i = bisect.bisect_right(starts[tid], mid) - 1
+            if i >= 0 and spans[i][1] >= mid:
+                names.append(spans[i][2])
+        key = "+".join(sorted(names)) or "(no stage open)"
+        idle_by_stage[key] = idle_by_stage.get(key, 0.0) + length / 1e3
+    gap_rows = []
+    for spans in by_tid.values():
+        spans.sort()
+    for length, start in gaps:
+        mid = start + length / 2
+        open_spans = {}
+        for tid, spans in by_tid.items():
+            chain = [n for s, e, n in spans if s <= mid <= e]
+            if chain:
+                open_spans["caller" if tid == caller else f"thread {tid}"] = " > ".join(chain[-3:])
+        gap_rows.append(dict(ms=length / 1e3, at_ms=(start - w0) / 1e3, host=open_spans))
+    kernels = sum(1 for e in dev if e["cat"] == "kernel")
+    return dict(
+        window_ms=(w1 - w0) / 1e3, busy_share=busy / (w1 - w0), device_ms=total / 1e3, kernels=kernels,
+        launches_per_frame=kernels / frames, memcpy_memset=len(dev) - kernels,
+        top=[dict(op=k, ms=v[0] / 1e3, count=v[1], share=v[0] / total) for k, v in top], gaps=gap_rows,
+        threads=len(by_tid), idle_by_stage=dict(sorted(idle_by_stage.items(), key=lambda kv: -kv[1])),
+    )
+
+
+def device_busy(torch, seq, cfg, dev) -> dict:
+    """One warm flagship pass of ``bench.run_pass`` with the device's activity
+    alone traced (no host op is recorded, so the host runs near its
+    unprofiled rate). Busy share: the union of kernel, memcpy and memset
+    intervals over the host's seconds from the first push_frame to the final
+    synchronize, inside which every device event of the trace lies; the
+    longest idle gaps between device events; K1 and K2 launches, counted
+    over this pass alone."""
+    from bundlefusion_tpu_torch import bench
+
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    window = {}
+
+    def traced(bf, steady):
+        with prof:
+            t0 = time.perf_counter()
+            steady()
+            torch.cuda.synchronize()
+            window["s"] = time.perf_counter() - t0
+
+    reset_launches()
+    bf, _ = bench.run_pass(seq, cfg, dev, wrap=traced)
+    launches, chunks = read_launches(), bf.chunk_count
+    del bf
+    path = os.path.join(OUT_DIR, "bench_profile_cuda.json")
+    dev_events = [e for e in trace_events(prof, path) if e.get("cat") in DEVICE_CATS]
+    os.remove(path)
+    if not dev_events:
+        raise AssertionError("the device-only trace holds no device event")
+    merged = busy_intervals(dev_events, float("-inf"), float("inf"))
+    busy_us = sum(e - s for s, e in merged)
+    gaps = sorted(((merged[i + 1][0] - merged[i][1], merged[i][1] - merged[0][0]) for i in range(len(merged) - 1)),
+                  reverse=True)[:5]
+    kernels = sum(1 for e in dev_events if e["cat"] == "kernel")
+    return dict(window_ms=window["s"] * 1e3, fps=len(seq.poses) / window["s"], busy_share=busy_us / (window["s"] * 1e6),
+                device_span_ms=(merged[-1][1] - merged[0][0]) / 1e3, kernels=kernels,
+                launches_per_frame=kernels / len(seq.poses), gaps=[dict(ms=g / 1e3, at_ms=t / 1e3) for g, t in gaps],
+                launches=launches, chunks=chunks)
+
+
+def device_profile(torch, seq, cfg, dev) -> dict:
+    """One warm flagship pass of ``bench.run_pass`` under torch.profiler (CPU
+    and CUDA activities, host ops of every thread: the chunk step runs on
+    the dispatch worker), summarized by ``summarize_trace``; the gzipped
+    chrome trace goes to ``chiprun_out/``."""
+    from bundlefusion_tpu_torch import bench
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    with torch.profiler.profile(activities=acts, experimental_config=every_thread) as prof:
+        bf, dt = bench.run_pass(seq, cfg, dev)
+    del bf
+    path = os.path.join(OUT_DIR, "bench_profile.json")
+    t0 = time.perf_counter()
+    summary = summarize_trace(trace_events(prof, path), bench.PASS_SPAN, len(seq.poses))
+    with open(path, "rb") as f_in, gzip.open(path + ".gz", "wb", compresslevel=1) as f_out:
+        shutil.copyfileobj(f_in, f_out)
+    summary.update(fps=len(seq.poses) / dt, trace_mib=os.path.getsize(path) / 2**20,
+                   kept=keep_or_drop(path + ".gz"), read_s=time.perf_counter() - t0)
+    os.remove(path)
+    return summary
+
+
+def run_bench(torch, T, dev, kernels_out, seq) -> None:
+    """Phase 14: in this process, two warm flagship passes of the bench's
+    ``run_pass``: one with the device's activity alone traced (the busy
+    share near the unprofiled rate, and one K1 and one K2 launch per
+    chunk), one under the full profiler (launches per frame, the top device
+    operations, the idle gaps and the host at each). Then the port's bench,
+    ``python -m bundlefusion_tpu_torch.bench``, at bench.py's two sizes in
+    subprocesses."""
+    from bundlefusion_tpu_torch import bench
+
+    smi = bench.device_line(dev)
+    cfg = bench.bench_config(*FULL, 262144)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    # the earlier phases left the allocator's cache warm: these passes make
+    # no cudaMalloc
+    busy = device_busy(torch, seq, cfg, dev)
+    one_launch_per_chunk(kernels_out, "bench", busy["launches"], busy["chunks"])
+    full = device_profile(torch, seq, cfg, dev)
+    phase("bench", f"device-only trace ({smi}): a warm flagship pass, {busy['fps']:.3f} fps; busy "
+          f"{busy['busy_share'] * 100:.1f}% of {busy['window_ms']:.1f} ms (union of kernels, memcpy, memset; first "
+          f"to last device event {busy['device_span_ms']:.1f} ms); {busy['kernels']} kernels, "
+          f"{busy['launches_per_frame']:.1f} per frame; launches {busy['launches']} over {busy['chunks']} chunks")
+    for i, g in enumerate(busy["gaps"]):
+        phase("bench", f"  device-only idle gap {i + 1}: {g['ms']:.3f} ms at +{g['at_ms']:.1f} ms after the first "
+              "device event")
+    phase("bench", f"full profile ({smi}; host ops of every thread): a warm flagship pass, {full['fps']:.3f} fps "
+          f"under the profiler; trace {full['trace_mib']:.1f} MiB, gzipped to {full['kept']}, read in "
+          f"{full['read_s']:.1f} s")
+    phase("bench", f"full profile: window {full['window_ms']:.1f} ms, busy {full['busy_share'] * 100:.1f}% (union of "
+          f"kernels, memcpy, memset); {full['kernels']} kernels, {full['launches_per_frame']:.1f} per frame; "
+          f"{full['memcpy_memset']} memcpy/memset; device time {full['device_ms']:.1f} ms; {full['threads']} host "
+          "threads traced")
+    for i, row in enumerate(full["top"]):
+        phase("bench", f"  top {i + 1}: {row['ms']:9.2f} ms {row['share'] * 100:5.1f}% x{row['count']:<6} {row['op']}")
+    for i, g in enumerate(full["gaps"]):
+        phase("bench", f"  idle gap {i + 1}: {g['ms']:.3f} ms at +{g['at_ms']:.1f} ms; host: {json.dumps(g['host'])}")
+    idle = {k: round(v, 2) for k, v in full["idle_by_stage"].items()}
+    phase("bench", f"  idle ms by the stage open on the worker threads: {json.dumps(idle)}")
+
+    torch.cuda.empty_cache()  # the card's memory is the subprocesses'
+    runs = {name: bench_subprocess(name, env, smi) for name, env in BENCH_RUNS}
+    fps = runs["flagship"]["result"]["value"]
+    phase("bench", f"the bench's flagship median {fps} fps unprofiled against {busy['fps']:.3f} with the "
+          f"device-only trace and {full['fps']:.3f} under the full profiler")
+    runs.update(busy=busy, profile=full)
+    with open(os.path.join(OUT_DIR, "bench_runs.json"), "w") as f:
+        json.dump(runs, f, indent=1)
+
+
 def main() -> int:
     import torch
 
@@ -1528,11 +1816,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke test runs only on a card", file=sys.stderr)
         return 1
     import bundlefusion_tpu_torch as T
-    from bundlefusion_tpu_torch import kernels
+    from bundlefusion_tpu_torch import bench, kernels
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
-    smi = smi_line()
+    smi = bench.device_line(dev)
     phase("device", f"{name}; nvidia-smi: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     secs = kernels.build()
@@ -1557,6 +1845,7 @@ def main() -> int:
     timed("configs", run_configs, torch, T, dev, kern, seq, ref)
     timed("ingest", run_ingest, torch, T, dev, kern, seq, cfg, ref)
     timed("paths", run_paths, torch, T, dev, kern, seq, cfg, ref)
+    timed("bench", run_bench, torch, T, dev, kern, seq)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

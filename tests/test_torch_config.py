@@ -57,7 +57,7 @@ def test_port_imports_no_jax():
         "bundlefusion_tpu_torch.fusion.marching_cubes, bundlefusion_tpu_torch.fusion.raycast, "
         "bundlefusion_tpu_torch.io.ply, bundlefusion_tpu_torch.io.sens, bundlefusion_tpu_torch.io.tum, "
         "bundlefusion_tpu_torch.io.sensor, bundlefusion_tpu_torch.io.replayer, "
-        "bundlefusion_tpu_torch.visualization\n"
+        "bundlefusion_tpu_torch.visualization, bundlefusion_tpu_torch.bench\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'bundlefusion_tpu.'))"
         " or m == 'bundlefusion_tpu']\n"
         "assert not bad, bad\n"
