@@ -11,6 +11,11 @@ The environment sets the run as it does for ``bench.py``: ``BENCH_WIDTH``
 (262,144), ``BENCH_NOISE`` (1) and ``BENCH_PASSES`` (5). The 80x60 cache
 of ``bench.py``'s configuration must divide the frame size.
 
+On a card the chunk step runs as captured CUDA graphs (``utils/graphs.py``):
+the warm pass captures them, and the timed passes, on fresh pipelines,
+replay them from the executable cache (``graph_replays``, ``capture_s`` and
+``timed_replayed_cached_graphs`` in the diagnostics say so).
+
 Progress lines and the diagnostics (JSON) go to stderr; the last line of
 stdout is ``{"metric", "value", "unit", "vs_baseline"}``. ``value`` is the
 median fps of the timed passes (``fps_passes`` lists them all), each pass
@@ -152,22 +157,29 @@ def run(width: int, height: int, frames: int, blocks: int, passes: int, noise: b
     say(f"rendering {frames} synthetic frames at {width}x{height} on {dev}")
     seq = generate_sequence(frames, width=width, height=height, radius=0.5, device=dev)
 
+    # the warm pass absorbs the chunk step's graph capture (utils/graphs.py),
+    # as the JAX bench's warm pass absorbs compilation; the timed passes
+    # replay the graphs it left in the executable cache
     say("warm pass (profile=True)")
     bf, dt_warm = run_pass(seq, cfg, dev, profile=True)
     stage_profile = bf.timing.summary()
     work, chunks = _work(bf), bf.chunk_count
+    capture_s = sum(v["capture_s"] for v in bf.graph_stats.values())
     del bf
-    say(f"warm pass done in {dt_warm:.1f}s; timed passes begin")
+    say(f"warm pass done in {dt_warm:.1f}s (graph capture {capture_s:.2f}s); timed passes begin")
 
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    seconds, bf = [], None
+    seconds, bf, replays, captured = [], None, {}, False
     for p in range(passes):
         # free the last pass's pipeline (a full voxel pool each) before the next
         bf = None
         gc.collect()
         bf, dt = run_pass(seq, cfg, dev)
         seconds.append(dt)
+        for name, g in bf.graph_stats.items():
+            replays.setdefault(name, []).append(g["replays"])
+            captured |= g["captured"]
         if _work(bf) != work or bf.chunk_count != chunks:
             raise RuntimeError(f"timed pass {p} counted (GN iterations, blocks updated, chunks) "
                                f"{(*_work(bf), bf.chunk_count)} against {(*work, chunks)}")
@@ -193,6 +205,12 @@ def run(width: int, height: int, frames: int, blocks: int, passes: int, noise: b
         "fps_passes": fps_passes,
         "device": device_line(dev),
         "chunks_valid": [int(r["chunk_valid"]) for r in bf.runlog.records if "chunk_valid" in r],
+        # the chunk step's CUDA graphs: replays of each stage in each timed
+        # pass, the warm pass's capture seconds, and whether every timed
+        # pass replayed graphs captured before it (none on the CPU)
+        "graph_replays": replays,
+        "capture_s": capture_s,
+        "timed_replayed_cached_graphs": not captured and all(n == chunks - 1 for r in replays.values() for n in r),
     }
     if cuda:
         diagnostics["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30

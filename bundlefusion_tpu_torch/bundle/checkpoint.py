@@ -28,6 +28,7 @@ from ..config import Config
 from ..fusion.blocks import INVALID_KEY
 from ..geometry.camera import CameraModel
 from ..interop import state_from_numpy, state_to_numpy
+from ..utils.tensor_ops import copy_into
 from .global_graph import GlobalGraph
 from .pipeline import BundleFusion, DeviceCtrl
 from .trajectory import TrajectoryState
@@ -94,20 +95,24 @@ def load_checkpoint(path: str, *, device: torch.device | str = "cuda") -> Bundle
     def put(x):
         return torch.as_tensor(np.asarray(x), device=bf.device)
 
+    # in place, on the pipeline's stream: the state's storage is its
+    # executable's (captured graphs address it)
     st = bf.state
-    for name, cls in _STATES.items():
-        setattr(st, name, state_from_numpy(dev[name], bf.device, cls))
-    for name in _DENSE:
-        setattr(st, name, put(dev[name]))
-    tab = dev["table"]
-    t = st.table
-    t.keys, t.slot_of, t.key_of_slot = put(tab["keys"]), put(tab["slot_of"]), put(tab["key_of_slot"])
-    live = put(tab["live"])
-    t.sdf[live], t.weight[live], t.color[live] = put(tab["sdf"]), put(tab["weight"]), put(tab["color"])
-    ring = put(dev["ring"]["slots"])
-    st.hist_d16[ring], st.hist_c8[ring] = put(dev["ring"]["d16"]), put(dev["ring"]["c8"])
-    n = host["num_frames"]
-    st.upd_masks[:n], st.upd_keys[:n] = put(dev["upd"]["masks"]), put(dev["upd"]["keys"])
+    with bf._device_ctx():
+        for name, cls in _STATES.items():
+            copy_into(getattr(st, name), state_from_numpy(dev[name], bf.device, cls))
+        for name in _DENSE:
+            getattr(st, name).copy_(put(dev[name]))
+        tab = dev["table"]
+        t = st.table
+        for name in ("keys", "slot_of", "key_of_slot"):
+            getattr(t, name).copy_(put(tab[name]))
+        live = put(tab["live"])
+        t.sdf[live], t.weight[live], t.color[live] = put(tab["sdf"]), put(tab["weight"]), put(tab["color"])
+        ring = put(dev["ring"]["slots"])
+        st.hist_d16[ring], st.hist_c8[ring] = put(dev["ring"]["d16"]), put(dev["ring"]["c8"])
+        n = host["num_frames"]
+        st.upd_masks[:n], st.upd_keys[:n] = put(dev["upd"]["masks"]), put(dev["upd"]["keys"])
     for name, key in _HOST_FIELDS.items():
         setattr(bf, name, host[key])
     return bf

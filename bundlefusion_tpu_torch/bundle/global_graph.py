@@ -6,8 +6,14 @@ buffer, and a global BA over keyframe poses runs with max-residual pruning,
 on one device (:func:`global_solve`) or sharded over a mesh
 (:func:`global_solve_sharded`).
 
-The state is updated in place where the JAX pipeline donates it: the
-keyframe slot write of :func:`add_keyframe`.
+The graph is updated in place where the JAX pipeline donates it: the
+keyframe slot write of :func:`add_keyframe`, and every tensor that
+:func:`global_match`, :func:`global_solve` and :func:`global_solve_sharded`
+produce as the graph's new state is written into the graph's own storage
+(``copy_into``); each returns the graph it was given. The keyframe slot is a
+0-d int32 device tensor, as in the JAX step, so that one captured step
+serves every chunk; the host-driven re-match of a stale keyframe may pass a
+Python int.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from ..features import filters, matcher, sift
 from ..geometry.camera import CameraModel
 from ..ops.preprocess import FrameCache
 from ..solver import gn, residuals
-from ..utils.tensor_ops import set_drop, top_k
+from ..utils.tensor_ops import copy_into, put_row, row, set_drop, top_k
 
 _INT32_MAX = 2**31 - 1
 
@@ -78,15 +84,24 @@ def make_graph(cfg: BundlingConfig, cache_h: int, cache_w: int, device) -> Globa
     )
 
 
-def add_keyframe(graph: GlobalGraph, k_idx: int, keys: sift.SiftKeys, cache: FrameCache,
+def _slot(k_idx, device) -> torch.Tensor:
+    """A keyframe slot as a 0-d int32 tensor on ``device`` (a Python int
+    becomes one by a fill on the device, not a copy from the host)."""
+    if isinstance(k_idx, torch.Tensor):
+        return k_idx
+    return torch.full((), k_idx, dtype=torch.int32, device=device)
+
+
+def add_keyframe(graph: GlobalGraph, k_idx: torch.Tensor, keys: sift.SiftKeys, cache: FrameCache,
                  init_pose: torch.Tensor, is_valid: torch.Tensor) -> GlobalGraph:
-    """Write keyframe slot ``k_idx`` in place (the JAX pipeline donates the graph)."""
+    """Write keyframe slot ``k_idx`` (0-d int32) in place (the JAX pipeline
+    donates the graph)."""
     for f in dataclasses.fields(sift.SiftKeys):
-        getattr(graph.keys, f.name)[k_idx] = getattr(keys, f.name)
+        put_row(getattr(graph.keys, f.name), k_idx, getattr(keys, f.name))
     for f in dataclasses.fields(FrameCache):
-        getattr(graph.cache, f.name)[k_idx] = getattr(cache, f.name)
-    graph.poses[k_idx] = init_pose
-    graph.valid[k_idx] = is_valid
+        put_row(getattr(graph.cache, f.name), k_idx, getattr(cache, f.name))
+    put_row(graph.poses, k_idx, init_pose)
+    put_row(graph.valid, k_idx, is_valid)
     return graph
 
 
@@ -136,20 +151,22 @@ def _append_corrs(graph: GlobalGraph, kmax: int, append_cap: int, cand: residual
     return new, cursor + n_new, overflow
 
 
-def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: BundlingConfig,
+def global_match(graph: GlobalGraph, k_idx, cache_cam: CameraModel, cfg: BundlingConfig,
                  against_all: bool = False) -> GlobalMatchResult:
-    """Match keyframe ``k_idx`` against every previous keyframe, filter, and
-    append the surviving correspondences; one batched pass over all K slots.
+    """Match keyframe ``k_idx`` (0-d int32, or a Python int on a host-driven
+    path) against every previous keyframe, filter, and append the surviving
+    correspondences to ``graph`` in place; one batched pass over all K slots.
 
     With ``against_all=True`` the candidates are every *valid* keyframe other
     than ``k_idx``, later ones included: the re-match of a stale keyframe
     after relocalization (``BundleFusion._revalidate_stale``)."""
     kmax = cfg.max_num_images
     dev = graph.poses.device
+    k_idx = _slot(k_idx, dev)
     slots = torch.arange(kmax, device=dev)
     prev_mask = ((slots != k_idx) if against_all else (slots < k_idx)) & graph.valid
-    new_keys = graph.keys.index(k_idx)
-    new_cache = graph.cache.index(k_idx)
+    new_keys = sift.SiftKeys(*(row(getattr(graph.keys, f.name), k_idx) for f in dataclasses.fields(sift.SiftKeys)))
+    new_cache = FrameCache(*(row(getattr(graph.cache, f.name), k_idx) for f in dataclasses.fields(FrameCache)))
 
     m = matcher.match_pairs(graph.keys.desc, graph.keys.valid, new_keys.desc, new_keys.valid, cfg)
     pa = graph.keys.p3d[slots[:, None], m.idx_i]  # [K, M, 3]
@@ -175,7 +192,7 @@ def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: Bu
     n_new = torch.sum(sel_ok).to(torch.int32)
     cand = residuals.SparseCorrs(
         img_a=torch.repeat_interleave(slots, mf)[sel].to(torch.int32),
-        img_b=torch.full((append_cap,), k_idx, dtype=torch.int32, device=dev),
+        img_b=k_idx.to(torch.int32).expand(append_cap),
         p_a=graph.keys.p3d[slots[:, None], fm.idx_i].reshape(-1, 3)[sel],
         p_b=new_keys.p3d[fm.idx_j].reshape(-1, 3)[sel],
         weight=torch.ones(append_cap, device=dev),
@@ -189,7 +206,7 @@ def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: Bu
         *(torch.where(do, getattr(app_corrs, f), getattr(graph.corrs, f))
           for f in ("img_a", "img_b", "p_a", "p_b", "weight"))
     )
-    graph = dataclasses.replace(
+    new = dataclasses.replace(
         graph,
         corrs=corrs,
         corr_cursor=torch.where(do, app_cursor, graph.corr_cursor),
@@ -207,14 +224,15 @@ def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: Bu
         dn = torch.sum(d_ok).to(torch.int32)
         dcap = graph.dense_pairs_a.shape[0]
         dslots = graph.dense_cursor + torch.arange(cfg.dense_pairs_per_kf, device=dev)
-        graph = dataclasses.replace(
-            graph,
+        new = dataclasses.replace(
+            new,
             dense_pairs_a=set_drop(graph.dense_pairs_a, dslots, dsel.to(torch.int32), d_ok),
-            dense_pairs_b=set_drop(graph.dense_pairs_b, dslots, k_idx, d_ok),
+            dense_pairs_b=set_drop(graph.dense_pairs_b, dslots, k_idx.to(torch.int32).expand(dslots.shape[0]), d_ok),
             dense_pair_on=set_drop(graph.dense_pair_on, dslots, True, d_ok),
             dense_cursor=torch.clamp(graph.dense_cursor + dn, max=dcap),
             dense_overflow=graph.dense_overflow + torch.clamp(graph.dense_cursor + dn - dcap, min=0),
         )
+    copy_into(graph, new)  # in place: the JAX step donates the graph
     return GlobalMatchResult(
         any_valid=any_valid,
         pair_valid=pair_valid,
@@ -227,7 +245,7 @@ def global_match(graph: GlobalGraph, k_idx: int, cache_cam: CameraModel, cfg: Bu
 
 def global_solve(graph: GlobalGraph, cache_cam: CameraModel | None, cfg: BundlingConfig):
     """Global BA over keyframe poses + pruning; keyframe 0 is the gauge.
-    Returns (graph, stats, removed)."""
+    Updates ``graph`` in place; returns (graph, stats, removed)."""
     kmax = cfg.max_num_images
     dev = graph.poses.device
     free = graph.valid & (torch.arange(kmax, device=dev) > 0)
@@ -250,8 +268,8 @@ def global_solve(graph: GlobalGraph, cache_cam: CameraModel | None, cfg: Bundlin
 
 
 def _finish_global_solve(graph: GlobalGraph, poses, problem: gn.GNProblem, cfg: BundlingConfig) -> GlobalGraph:
-    """Store poses and pruned weights; invalidate keyframes (except 0) that
-    lost all correspondences."""
+    """Store poses and pruned weights in ``graph`` (in place); invalidate
+    keyframes (except 0) that lost all correspondences."""
     kmax = cfg.max_num_images
     corrs = problem.corrs
     dev = poses.device
@@ -260,14 +278,16 @@ def _finish_global_solve(graph: GlobalGraph, poses, problem: gn.GNProblem, cfg: 
     has_corr = has_corr.scatter_reduce(0, corrs.img_a.long(), w_ok, "amax")
     has_corr = has_corr.scatter_reduce(0, corrs.img_b.long(), w_ok, "amax")
     new_valid = graph.valid & ((has_corr > 0) | (torch.arange(kmax, device=dev) == 0))
-    return dataclasses.replace(graph, poses=poses, corrs=corrs, valid=new_valid)
+    copy_into(graph, dataclasses.replace(graph, poses=poses, corrs=corrs, valid=new_valid))
+    return graph
 
 
 def global_solve_sharded(graph: GlobalGraph, mesh, cache_cam: CameraModel | None, cfg: BundlingConfig):
     """:func:`global_solve` with the system assembly sharded over the
     correspondences and the PCG row-sharded across ``mesh``
     (``parallel/sharded_ba.py``): the same sparse + dense terms, weight
-    ramp, pruning and keyframe invalidation. Returns (graph, removed)."""
+    ramp, pruning and keyframe invalidation. Updates ``graph`` in place;
+    returns (graph, removed)."""
     from ..parallel import sharded_ba
 
     kmax = cfg.max_num_images

@@ -27,9 +27,26 @@ in chunk order; every public accessor calls it. ``BF_SYNC_INGEST=1`` or
 also makes every timed stage wait for the device at its end, and turns the
 backpressure off.
 
-Where the JAX package donates buffers to its fused programs, the port
-updates them in place: the voxel pools, the frame ring, the per-frame update
-records, the keyframe slots and the per-chunk stores (each site says so).
+Execution, as in the JAX package: the chunk step runs as five stages
+(``chunk_local``, ``graph_step``, ``global_solve``, ``publish``,
+``plan_fuse``), each of which the JAX package compiles into one XLA program
+that donates the state's buffers and is dispatched once per chunk. Here each
+stage after chunk 0 runs through a ``utils/graphs.py`` program: on a card it
+runs eagerly at the first steady chunk (the warm-up), is captured as a CUDA
+graph at the second and replayed at every later one. That requires what
+jit's donation gives the JAX step, and the port keeps it on the CPU as well:
+every state tensor keeps its storage (each stage writes its results into the
+state in place, ``copy_into`` where a function builds new arrays), the
+chunk's frames are copied into static wire buffers, and the chunk index and
+the frame ids come from device tensors (:class:`StepInputs`) that the step
+advances itself, so the step's operations are the same at every chunk.
+Chunk 0 stays eager (the JAX package compiles its ``is_first`` graph step
+separately), as do GC, streaming, revalidation, ``finalize()`` and the
+upload's unpack: host decisions, or work off the step. The graphs, the
+state and the compute stream form one executable, kept by (configuration,
+device, camera) in a process-wide cache: a new pipeline takes an idle one
+and resets its state in place, as a new JAX pipeline reuses jit's programs.
+``utils/graphs.disable_graphs()`` runs the step eagerly on a card.
 
 Three places read device state on the host by design, as in the JAX
 package: the out-of-core streaming check (every ``streaming_check_every``
@@ -42,10 +59,10 @@ the wire (``framewire.bilateral_wire``) instead of in the chunk step; an
 integration resolution below the input resolution decimates depth and colour
 at the wire for the ring, the FrameStore and K1; a ``mesh``
 (``parallel.mesh.make_mesh``) shards the global BA over its shards
-(``global_graph.global_solve_sharded``). :class:`FusionState` and the chunk
-step's functions (:func:`_graph_step`, :func:`_plan_and_fuse`) are also
-each shard's state and steps in the multi-sequence driver
-(``parallel/spmd_pipeline.py``).
+(``global_graph.global_solve_sharded``, eager). :class:`FusionState` and
+the chunk step's functions (:func:`_graph_step`, :func:`_publish_all`,
+:func:`_plan_and_fuse`) are also each shard's state and steps in the
+multi-sequence pipeline (``parallel/spmd_pipeline.py``, eager).
 """
 
 from __future__ import annotations
@@ -72,7 +89,8 @@ from ..geometry.camera import CameraModel
 from ..io import framewire
 from ..ops.preprocess import wire_depth_to_m
 from ..utils.logging import RunLog
-from ..utils.tensor_ops import set_drop
+from ..utils import graphs
+from ..utils.tensor_ops import copy_into, put_row, row, set_drop
 from ..utils.timing import TimingLog
 from . import chunk as chunk_mod
 from . import global_graph, trajectory
@@ -112,53 +130,85 @@ RUNREC_FIELDS = (
 RUNREC_WIDTH = len(RUNREC_FIELDS)
 
 
-def _graph_step(graph, ctrl: DeviceCtrl, k_idx: int, res: chunk_mod.ChunkResult, local_traj_dev,
-                chunk_valid_dev, anchor, cache_cam: CameraModel, cfg, is_first: bool):
+@dataclass
+class StepInputs:
+    """The chunk step's per-chunk inputs, as device tensors: the JAX step
+    takes them as device arrays, so that one compiled program serves every
+    chunk, and here one captured graph does. A pipeline keeps one, which
+    :func:`advance_step` moves to the next chunk on the device at the end of
+    each chunk's step."""
+
+    chunk: torch.Tensor  # int32 0-d: the chunk index c, also its keyframe slot
+    new_ids: torch.Tensor  # [cf] int64: the chunk's frames c*S .. c*S + S
+    new_valid: torch.Tensor  # [cf] bool: rows to integrate (after chunk 0 not the overlap row)
+    exclude_from: torch.Tensor  # int32 0-d: the re-integration plan skips frames from here on
+
+
+def step_inputs(c: int, submap_size: int, chunk_frames: int, device) -> StepInputs:
+    """Chunk ``c``'s inputs, made on the device (fills, no host copy)."""
+    lo = 0 if c == 0 else 1  # after chunk 0 the overlap frame is already integrated
+    ar = torch.arange(chunk_frames, device=device)
+    return StepInputs(
+        chunk=torch.full((), c, dtype=torch.int32, device=device),
+        new_ids=ar + c * submap_size,
+        new_valid=ar >= lo,
+        exclude_from=torch.full((), c * submap_size + lo, dtype=torch.int32, device=device),
+    )
+
+
+def advance_step(step: StepInputs, submap_size: int) -> None:
+    """Move ``step`` to the next chunk in place, on the device."""
+    step.chunk.add_(1)
+    step.new_ids.add_(submap_size)
+    step.new_valid.fill_(True)
+    step.new_valid[:1].fill_(False)  # (an item assignment would copy a host scalar)
+    torch.add(step.chunk * submap_size, 1, out=step.exclude_from)
+
+
+def _graph_step(st: "FusionState", step: StepInputs, res: chunk_mod.ChunkResult, cache_cam: CameraModel, cfg,
+                is_first: bool):
     """All keyframe-graph control flow of one chunk: keyframe pose init
     (chained from the previous keyframe), ``add_keyframe``, global matching,
-    relocalization, and the tracking-lost state machine. Returns (graph,
-    ctrl, integrate_mask, stats_in)."""
+    relocalization, and the tracking-lost state machine. Updates the graph,
+    the control state and the per-chunk stores of ``st`` in place (the JAX
+    step donates them). Returns (integrate_mask, stats_in)."""
     chunk_valid = res.chunk_valid
-    dev = anchor.device
+    k = step.chunk  # one keyframe per chunk
+    graph, ctrl = st.graph, st.ctrl
+    dev = st.anchor.device
     if is_first:
         kf_valid = chunk_valid
-        graph = global_graph.add_keyframe(
-            graph, k_idx, res.keyframe_keys, res.keyframe_cache, anchor, kf_valid & chunk_valid
-        )
+        global_graph.add_keyframe(graph, k, res.keyframe_keys, res.keyframe_cache, st.anchor, kf_valid & chunk_valid)
         reloc = torch.zeros((), dtype=torch.bool, device=dev)
     else:
-        chain = graph.valid[k_idx - 1] & chunk_valid & ~ctrl.tracking_lost
-        init_pose = torch.where(chain, graph.poses[k_idx - 1] @ ctrl.last_rel, anchor)
-        graph = global_graph.add_keyframe(
-            graph, k_idx, res.keyframe_keys, res.keyframe_cache, init_pose, chain & chunk_valid
-        )
+        prev = k - 1
+        chain = row(graph.valid, prev) & chunk_valid & ~ctrl.tracking_lost
+        init_pose = torch.where(chain, row(graph.poses, prev) @ ctrl.last_rel, st.anchor)
+        global_graph.add_keyframe(graph, k, res.keyframe_keys, res.keyframe_cache, init_pose, chain & chunk_valid)
         # loop closure and relocalization are ONE mechanism: match against
         # all previous keyframes (an invalid chunk's keys are all masked)
-        mres = global_graph.global_match(graph, k_idx, cache_cam, cfg)
-        graph = mres.graph
+        mres = global_graph.global_match(graph, k, cache_cam, cfg)
         reloc = mres.any_valid & chunk_valid & ~chain
         # index with a 1-element tensor: a 0-d index would be read by the host
         best = mres.best_prev.reshape(1)
         pose_r = (graph.poses[best] @ se3.mat_inverse(mres.transforms[best]))[0]
-        # in place: the JAX step donates the graph
-        graph.poses[k_idx] = torch.where(reloc, pose_r, graph.poses[k_idx])
-        graph.valid[k_idx] = (chain & chunk_valid) | reloc
+        put_row(graph.poses, k, torch.where(reloc, pose_r, row(graph.poses, k)))
+        put_row(graph.valid, k, (chain & chunk_valid) | reloc)
         kf_valid = chain | reloc
 
     ok = chunk_valid & kf_valid
     consec = torch.where(ok, 0, ctrl.consecutive_invalid + 1).to(torch.int32)
     lost = torch.where(ok, False, torch.where(consec >= cfg.max_invalid_chunks_lost, True, ctrl.tracking_lost))
     lost_chunks = (ctrl.lost_chunks + (~ok & (lost | ~chunk_valid)).to(torch.int32)).to(torch.int32)
-    ctrl = DeviceCtrl(
+    copy_into(ctrl, DeviceCtrl(
         tracking_lost=lost,
         consecutive_invalid=consec,
         lost_chunks=lost_chunks,
         reloc_events=(ctrl.reloc_events + reloc.to(torch.int32)).to(torch.int32),
         last_rel=res.local_traj[-1],
-    )
-    # in place: the per-chunk stores are donated in the JAX step
-    local_traj_dev[k_idx] = res.local_traj
-    chunk_valid_dev[k_idx] = chunk_valid
+    ))
+    put_row(st.local_trajs, k, res.local_traj)
+    put_row(st.chunk_valid, k, chunk_valid)
     f32 = torch.float32
     stats_in = torch.stack(
         [
@@ -167,25 +217,26 @@ def _graph_step(graph, ctrl: DeviceCtrl, k_idx: int, res: chunk_mod.ChunkResult,
             torch.sum(res.pair_valid).to(f32), graph.corr_cursor.to(f32), lost_chunks.to(f32),
         ]
     )
-    return graph, ctrl, ok, stats_in
+    return ok, stats_in
 
 
-def _publish_all(traj, local_trajs, chunk_valid, kf_poses, kf_valid, submap_size: int, chunk_frames: int):
+def _publish_all(st: "FusionState", submap_size: int, chunk_frames: int) -> None:
     """Complete trajectory = keyframe pose o local relative pose, for every
-    chunk slot. Overlap frames appear in two chunk slots (last of c, first of
-    c+1); as in the reference's scatter, the later slot wins, and a second
-    pass re-writes the valid entries only so an invalid neighbour never
-    clobbers a valid pose. Each write below has unique ids (columns 1..S of
-    all chunks first, then column 0), which makes "later wins" explicit.
-
-    The JAX step donates the trajectory; here each write builds new [F, ...]
-    arrays (``set_drop``), because masked rows need a scratch row and
-    TrajectoryState keeps the reference's shapes. They are small (F x 4 x 4)."""
+    chunk slot, written into ``st.traj`` in place (the JAX step donates the
+    trajectory). Overlap frames appear in two chunk slots (last of c, first
+    of c+1); as in the reference's scatter, the later slot wins, and a
+    second pass re-writes the valid entries only so an invalid neighbour
+    never clobbers a valid pose. Each write below has unique ids (columns
+    1..S of all chunks first, then column 0), which makes "later wins"
+    explicit. Each write builds new [F, ...] arrays (``set_drop``: masked
+    rows need a scratch row), copied into the trajectory at the end."""
+    local_trajs, kf_poses = st.local_trajs, st.graph.poses
     c_pub = min(local_trajs.shape[0], kf_poses.shape[0])
     dev = kf_poses.device
     world = torch.einsum("cij,csjk->csik", kf_poses[:c_pub], local_trajs[:c_pub])
-    valid = (chunk_valid[:c_pub] & kf_valid[:c_pub])[:, None].expand(c_pub, chunk_frames)
+    valid = (st.chunk_valid[:c_pub] & st.graph.valid[:c_pub])[:, None].expand(c_pub, chunk_frames)
     fids = torch.arange(c_pub, device=dev)[:, None] * submap_size + torch.arange(chunk_frames, device=dev)
+    traj = st.traj
     for keep in (None, valid):
         for cols in (slice(1, None), slice(0, 1)):
             traj = trajectory.update_optimized(
@@ -195,7 +246,7 @@ def _publish_all(traj, local_trajs, chunk_valid, kf_poses, kf_valid, submap_size
                 valid[:, cols].reshape(-1),
                 None if keep is None else keep[:, cols].reshape(-1),
             )
-    return traj
+    copy_into(st.traj, traj)
 
 
 @dataclass
@@ -262,26 +313,27 @@ def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, in
     )
 
 
-def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, chunk_idx: int, stats_in, d16_new,
-                   c8_new, new_ids, new_valid, integrate_mask, exclude_from: int, budget: int) -> None:
+def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: StepInputs, stats_in, d16_new,
+                   c8_new, integrate_mask, budget: int) -> None:
     """All TSDF pose maintenance of one chunk, on the device: ring write of
     the new frames, budgeted re-integration planning, de-integration at stale
     poses, (re-)integration at optimized poses (K1 at ``int_cam``),
-    trajectory bookkeeping, and the diagnostics row. Updates ``st`` in
-    place."""
+    trajectory bookkeeping, and the diagnostics row (row ``step.chunk``).
+    Updates ``st`` in place."""
     r_cap = st.history_cap
+    new_ids, new_valid = step.new_ids, step.new_valid
     n_new = new_ids.shape[0]
 
     # 1. ring write (slot = id % R); masked rows go to the scratch row R
     slots_new = torch.where(new_valid, new_ids % r_cap, r_cap)
     st.hist_d16[slots_new] = d16_new  # in place (donated in the JAX step)
     st.hist_c8[slots_new] = c8_new
-    st.ring_frame = set_drop(st.ring_frame, slots_new, new_ids.to(torch.int32))
+    st.ring_frame.copy_(set_drop(st.ring_frame, slots_new, new_ids.to(torch.int32)))
 
     # 2. plan: residency-aware, new frames excluded (they integrate explicitly)
     plan = trajectory.plan_reintegration(
         st.traj, budget, rot_thresh=cfg.reint_rot_thresh, trans_thresh=cfg.reint_trans_thresh,
-        exclude_from=exclude_from, ring_frame=st.ring_frame,
+        exclude_from=step.exclude_from, ring_frame=st.ring_frame,
     )
     frames = torch.cat([new_ids, plan.frames])
     deint = torch.cat([torch.zeros_like(new_valid), plan.deint_mask])
@@ -298,28 +350,29 @@ def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, chunk_
     traj = st.traj
     new_poses = traj.opt_pose[frames]
     recorded = st.upd_masks[frames]
-    st.table, diag = tsdf.fuse_batch(
+    table, diag = tsdf.fuse_batch(
         st.table, wire_depth_to_m(st.hist_d16[slots]), st.hist_c8[slots],
         traj.integrated_pose[frames], new_poses, deint, reint, recorded, int_cam, cfg,
         upd_keys_rec=st.upd_keys[frames], deint_rows=frames.shape[0] - n_new,
     )
+    copy_into(st.table, table)  # the pools were updated in place; the index is copied back
     integrated = set_drop(traj.integrated, frames, False, deint)
-    st.traj = dataclasses.replace(
+    copy_into(traj, dataclasses.replace(
         traj,
         integrated_pose=set_drop(traj.integrated_pose, frames, new_poses, reint),
         integrated=set_drop(integrated, frames, True, reint),
-    )
+    ))
     blocks_touched = (torch.sum(recorded & deint[:, None]) + torch.sum(diag.upd_mask)).to(torch.float32)
     # in place; rows not re-integrated go to the scratch row F
     reint_ids = torch.where(reint, frames, st.upd_masks.shape[0] - 1)
     st.upd_masks[reint_ids] = diag.upd_mask
     st.upd_keys[reint_ids] = diag.upd_keys
-    st.blocks_updated = st.blocks_updated + blocks_touched
+    st.blocks_updated.add_(blocks_touched)
 
     # 5. diagnostics row (read once at finalize); stats_in[8] carries the
     # cumulative lost-chunk count from the graph step
     f32 = torch.float32
-    row = torch.cat(
+    stats = torch.cat(
         [
             stats_in[:8],
             torch.stack(
@@ -331,7 +384,44 @@ def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, chunk_
             ),
         ]
     )
-    st.runlog_rows[chunk_idx] = row  # in place
+    put_row(st.runlog_rows, step.chunk, stats)
+
+
+def _chunk_local(wire, cam: CameraModel, cache_cam: CameraModel, bc, ac: AppConfig) -> chunk_mod.ChunkResult:
+    """Stage ``chunk_local``: the local pipeline on the chunk's wire (depth,
+    luma)."""
+    return chunk_mod.process_chunk(
+        wire[0], wire[1], cam, cache_cam, bc, sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
+        # with integrate_filtered_depth the wire is already filtered
+        filter_depth=ac.depth_filter and not ac.integrate_filtered_depth,
+    )
+
+
+def _plan_fuse_step(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: StepInputs, stats_in, wire,
+                    integrate_mask, budget: int, submap_size: int) -> None:
+    """Stage ``plan_fuse``: :func:`_plan_and_fuse` on the wire at the
+    integration resolution, then the step inputs move to the next chunk."""
+    _plan_and_fuse(st, cfg, int_cam, step, stats_in, wire[3], wire[4], integrate_mask, budget)
+    advance_step(step, submap_size)
+
+
+@dataclass
+class StepState:
+    """What the captured chunk step addresses, kept with its graphs in the
+    executable cache: the fusion state, the step inputs, and the static
+    device copies of a chunk's wire (depth, luma, colour, then depth and
+    colour at the integration resolution, the first and third again when
+    the resolutions are equal)."""
+
+    fusion: FusionState
+    step: StepInputs
+    wire: tuple[torch.Tensor, ...]
+
+
+# The executables of the serial pipeline's chunk step (graphs and the state
+# they address) by (configuration, device, camera), process-wide as jit's
+# cache is: a fresh pipeline of a configuration takes an idle one.
+_EXECUTABLES = graphs.ExecutableCache()
 
 
 # --- warm host staging pool --------------------------------------------------
@@ -492,6 +582,8 @@ class BundleFusion:
         profile: bool = False,
     ):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         # profile=True waits for the device at the end of every timed stage,
         # so each stage's time is its own (the default lets a chunk's work
         # queue back to back), and runs ingest on the caller's thread
@@ -541,11 +633,22 @@ class BundleFusion:
         self.chunk_count = 0
         self.gn_iters_executed = 0  # host GN iterations (the device counts blocks updated)
         self.anchor = np.eye(4, dtype=np.float32) if anchor_pose is None else anchor_pose
-        # the device state; the ring holds half-res colour (the v2 wire).
-        # Finalize's service rounds log in the runlog's scratch row.
-        self.state = make_fusion_state(
-            self.config, self.int_cam, (self.int_cam.height // 2, self.int_cam.width // 2), self.anchor, dev
-        )
+        # 12-bit depth wire whenever the sensor ceiling fits 12 bits of mm
+        # (the reference's default 4.0 m does)
+        self._pack12 = ac.depth_max * 1000.0 + 1.0 < 4096.0
+        self._wire_dims = (cam.height, cam.width, self.int_cam.height, self.int_cam.width, self._pack12)
+        # the chunk step's executable: its programs (captured CUDA graphs on
+        # a card unless built under graphs.disable_graphs()), its compute
+        # stream, and the state they address: the device state (the ring
+        # holds half-res colour, the v2 wire; finalize's service rounds log
+        # in the runlog's scratch row), the step inputs and the static wire
+        self._graphed = dev.type == "cuda" and graphs.graphs_enabled()
+        self._exe = self._checkout_executable()
+        self._programs_at_start = {n: (p.replays, p.graph is not None) for n, p in self._exe.programs.items()}
+        self.state: FusionState = self._exe.state.fusion
+        self._step: StepInputs = self._exe.state.step
+        self._wire: tuple[torch.Tensor, ...] = self._exe.state.wire
+        self._step_chunk = 0  # the chunk whose inputs self._step holds
         self.max_chunks = bc.max_frames // self.S
         # frame storage for de/re-integration: the host FrameStore holds every
         # frame (wire format); the device ring caches slot = id % R
@@ -558,10 +661,6 @@ class BundleFusion:
         # wire rows (d16, y8, c8h, d16 and c8h at the integration resolution)
         # awaiting a full chunk; the overlap frame stays at the head
         self._pending: list[tuple[np.ndarray, ...]] = []
-        # 12-bit depth wire whenever the sensor ceiling fits 12 bits of mm
-        # (the reference's default 4.0 m does)
-        self._pack12 = ac.depth_max * 1000.0 + 1.0 < 4096.0
-        self._wire_dims = (cam.height, cam.width, self.int_cam.height, self.int_cam.width, self._pack12)
         # chunk 0 (and the first chunk after a resume) uploads all
         # chunk_frames rows, every later chunk the S new ones
         pinned = dev.type == "cuda"
@@ -582,9 +681,10 @@ class BundleFusion:
         self._waits_lock = threading.Lock()
         self._chunk_futs: list[concurrent.futures.Future] = []  # dispatch futures (sync() drains)
         self._async_ingest = not profile and os.environ.get("BF_SYNC_INGEST", "0") != "1"
-        # the stream every chunk's work is enqueued on, from any thread, and
+        # the stream every chunk's work is enqueued on, from any thread (the
+        # executable's: graphs are captured on a stream of their own), and
         # the upload's own stream (copy and unpack overlap the chunk step)
-        self._stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        self._stream = self._exe.stream
         self._copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self._finalized = False
         self._reloc_seen = 0  # relocalizations already followed by a revalidation
@@ -595,6 +695,63 @@ class BundleFusion:
         self._streaming_on = False
         self.timing = TimingLog(dev)
         self.runlog = RunLog(log_path)
+
+    def _checkout_executable(self) -> graphs.Executable:
+        """An idle executable of this configuration, device and camera from
+        the process-wide cache, its state reset in place to what
+        :func:`make_fusion_state` builds, or a new one. It returns to the
+        cache when this pipeline is garbage-collected (the JAX step's
+        buffers are donated; a dropped pipeline's state is reused)."""
+        dev = self.device
+        cf, (h, w, hi, wi, _) = self.chunk_frames, self._wire_dims
+
+        def fresh():
+            return make_fusion_state(self.config, self.int_cam, (hi // 2, wi // 2), self.anchor, dev)
+
+        def build():
+            exe = graphs.Executable(dev, None)
+            with self._stream_ctx(exe.stream):  # the state lives on the compute stream
+                wire = [torch.zeros((cf, h, w), dtype=torch.int16, device=dev),
+                        torch.zeros((cf, h, w), dtype=torch.uint8, device=dev),
+                        torch.zeros((cf, h // 2, w // 2, 3), dtype=torch.uint8, device=dev)]
+                if (hi, wi) == (h, w):
+                    wire += [wire[0], wire[2]]
+                else:
+                    wire += [torch.zeros((cf, hi, wi), dtype=torch.int16, device=dev),
+                             torch.zeros((cf, hi // 2, wi // 2, 3), dtype=torch.uint8, device=dev)]
+                exe.state = StepState(fresh(), step_inputs(0, self.S, cf, dev), tuple(wire))
+            return exe
+
+        key = (self.config.to_json(), str(dev), tuple(self.cam))
+        exe, reused = _EXECUTABLES.checkout(self, key, build)
+        if reused:
+            with self._stream_ctx(exe.stream):
+                copy_into(exe.state.fusion, fresh())
+                copy_into(exe.state.step, step_inputs(0, self.S, cf, dev))
+        return exe
+
+    def _stream_ctx(self, stream):
+        """The pipeline's device and ``stream`` for the calling thread (in
+        PyTorch both belong to each thread); nothing on the CPU."""
+        if stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
+    @property
+    def graph_stats(self) -> dict[str, dict]:
+        """Per stage of the chunk step (after this pipeline ran it once):
+        ``graph`` (captured), ``replays`` by this pipeline, ``captured``
+        (by this pipeline) and ``capture_s``."""
+        out = {}
+        for name, p in self._exe.programs.items():
+            replays0, had_graph = self._programs_at_start.get(name, (0, False))
+            here = p.graph is not None and not had_graph
+            out[name] = {"graph": p.graph is not None, "replays": p.replays - replays0, "captured": here,
+                         "capture_s": p.capture_s if here else 0.0}
+        return out
 
     # ------------------------------------------------------------------
     # frame input
@@ -636,14 +793,8 @@ class BundleFusion:
 
     def _device_ctx(self, stream=None):
         """The pipeline's device and ``stream`` (default: the compute
-        stream) for the calling thread (in PyTorch both belong to each
-        thread)."""
-        if self._stream is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(self.device))
-        stack.enter_context(torch.cuda.stream(self._stream if stream is None else stream))
-        return stack
+        stream) for the calling thread."""
+        return self._stream_ctx(self._stream if stream is None else stream)
 
     def _count_wait(self, site: str) -> None:
         with self._waits_lock:
@@ -749,64 +900,71 @@ class BundleFusion:
 
     def _process_chunk(self, d_wire: torch.Tensor, y_wire: torch.Tensor, c_wire: torch.Tensor,
                        d_wire_int: torch.Tensor, c_wire_int: torch.Tensor) -> None:
+        """One chunk's step. Its five stages run as the JAX package's five
+        programs do: chunk 0 eagerly (its graph step is the ``is_first``
+        program), every later chunk through the executable's programs
+        (:meth:`_run`). The stages read the chunk only from the static wire
+        and the step inputs, and update the state in place."""
         bc = self.config.bundling
         ac = self.config.app
         c = self.chunk_count
         if c >= min(self.max_chunks, bc.max_num_images):
             raise ValueError(f"chunk {c} exceeds the keyframe/chunk capacity")
         first_frame = c * self.S
-        k_idx = c  # one keyframe per chunk
-        st = self.state
+        st, step, wire = self.state, self._step, self._wire
         t_chunk = time.perf_counter()
         # backpressure: the host dispatches at most ~2 chunks ahead of the device
         if len(self._bp_events) >= 2 and not self.profile:
             self._wait_event(self._bp_events.pop(0), "backpressure")
+        # the chunk's wire into the static buffers (the last two alias the
+        # first and third at one resolution); the step inputs are set from
+        # the host only when they do not hold chunk c (a restored pipeline)
+        copied: set[int] = set()
+        for dst, src in zip(wire, (d_wire, y_wire, c_wire, d_wire_int, c_wire_int)):
+            if id(dst) not in copied:
+                dst.copy_(src)
+                copied.add(id(dst))
+        if self._step_chunk != c:
+            copy_into(step, step_inputs(c, self.S, self.chunk_frames, self.device))
+        steady = c > 0
 
         with self.timing.stage("chunk_local", block=self.profile):
-            res = chunk_mod.process_chunk(
-                d_wire, y_wire, self.cam, self.cache_cam, bc,
-                sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
-                # with integrate_filtered_depth the wire is already filtered
-                filter_depth=ac.depth_filter and not ac.integrate_filtered_depth,
-            )
+            res = self._run(steady, "chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac)
         self.gn_iters_executed += bc.local_gn_iters * 2  # 2 solve+prune rounds
 
         with self.timing.stage("graph_step", block=self.profile):
-            st.graph, st.ctrl, integrate_mask, stats_in = _graph_step(
-                st.graph, st.ctrl, k_idx, res, st.local_trajs, st.chunk_valid, st.anchor, self.cache_cam, bc,
-                is_first=(k_idx == 0),
-            )
-        self.num_keyframes = k_idx + 1
+            integrate_mask, stats_in = self._run(steady, "graph_step", _graph_step, st, step, res, self.cache_cam,
+                                                 bc, not steady)
+        self.num_keyframes = c + 1  # one keyframe per chunk
 
         if self.num_keyframes > 1:
             with self.timing.stage("global_solve", block=self.profile):
-                self._global_solve()
+                if self.mesh is None:
+                    self._run(steady, "global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
+                else:  # the sharded solve stays eager
+                    self._global_solve()
             self.gn_iters_executed += bc.global_gn_iters
 
         with self.timing.stage("publish", block=self.profile):
-            self._publish_trajectory()
+            self._run(steady, "publish", _publish_all, st, self.S, self.chunk_frames)
 
-        lo = 0 if c == 0 else 1  # the overlap frame is already integrated
-        dev = self.device
-        new_ids = torch.arange(first_frame, first_frame + self.chunk_frames, device=dev)
-        new_valid = torch.arange(self.chunk_frames, device=dev) >= lo
         self.num_frames = max(self.num_frames, first_frame + self.chunk_frames)
         with self.timing.stage("plan_fuse", block=self.profile):
-            _plan_and_fuse(
-                st, ac, self.int_cam, c, stats_in, d_wire_int, c_wire_int, new_ids, new_valid, integrate_mask,
-                exclude_from=first_frame + lo, budget=ac.max_reintegrations_per_frame * self.S,
-            )
+            self._run(steady, "plan_fuse", _plan_fuse_step, st, ac, self.int_cam, step, stats_in, wire,
+                      integrate_mask, ac.max_reintegrations_per_frame * self.S, self.S)
+        self._step_chunk = c + 1
 
         if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
             with self.timing.stage("gc", block=self.profile):
-                st.table, freed = blocks.garbage_collect(st.table)
-                st.gc_freed_total = st.gc_freed_total + freed.to(torch.float32)
+                table, freed = blocks.garbage_collect(st.table)
+                copy_into(st.table, table)
+                st.gc_freed_total.add_(freed.to(torch.float32))
 
         # out-of-core streaming: evict far blocks, restore near ones
         if ac.streaming_enabled and (
             self._streaming_on or (ac.streaming_check_every and (c + 1) % ac.streaming_check_every == 0)
         ):
-            self._streaming_step(k_idx, c)
+            self._streaming_step(c, c)
 
         # optional mid-run revalidation after a relocalization (by default
         # deferred to finalize(): the check reads a device counter)
@@ -823,6 +981,15 @@ class BundleFusion:
         self.timing.record("whole_chunk_step", time.perf_counter() - t_chunk)
         self.chunk_count += 1
 
+    def _run(self, steady: bool, name: str, fn, *args):
+        """Stage ``name`` of the chunk step: ``fn(*args)`` eagerly on chunk
+        0, else through the executable's program of that name, which on a
+        card warms up, captures and then replays (``graphs.Program``) unless
+        this pipeline was built under ``graphs.disable_graphs()``."""
+        if not steady:
+            return fn(*args)
+        return self._exe.program(name, fn)(*args, graphed=self._graphed)
+
     def _streaming_step(self, k_idx: int, c: int) -> None:
         """Stream near host blocks in, then (past the occupancy watermark)
         far device blocks out, around keyframe ``k_idx``'s position."""
@@ -832,14 +999,16 @@ class BundleFusion:
         n_in = n_out = 0
         with self.timing.stage("streaming", block=self.profile):
             if len(self.block_store):
-                self.state.table, n_in = streaming.stream_in(
+                table, n_in = streaming.stream_in(
                     self.state.table, self.block_store, cam_pos, ac, free_capacity=ac.block_capacity - active_blocks
                 )
+                copy_into(self.state.table, table)
                 active_blocks += n_in
             # stream-out engages only past the occupancy watermark, so small
             # scenes never pay host traffic
             if active_blocks > ac.streaming_watermark * ac.block_capacity:
-                self.state.table, n_out = streaming.stream_out(self.state.table, self.block_store, cam_pos, ac)
+                table, n_out = streaming.stream_out(self.state.table, self.block_store, cam_pos, ac)
+                copy_into(self.state.table, table)
         if n_in or n_out:
             self._streaming_on = True
             self.runlog.log(chunk=c, stream_in=n_in, stream_out=n_out, host_blocks=len(self.block_store))
@@ -871,7 +1040,6 @@ class BundleFusion:
             progressed = 0
             for k in stale[:max_per_event].tolist():
                 mres = global_graph.global_match(self.state.graph, k, self.cache_cam, bc, against_all=True)
-                self.state.graph = mres.graph
                 if bool(mres.any_valid):
                     j = int(mres.best_prev)
                     # in place, as the graph step writes keyframe slots
@@ -887,9 +1055,9 @@ class BundleFusion:
         """Global BA of the keyframe graph, sharded over the mesh when there is one."""
         bc = self.config.bundling
         if self.mesh is not None:
-            self.state.graph, _ = global_graph.global_solve_sharded(self.state.graph, self.mesh, self.cache_cam, bc)
+            global_graph.global_solve_sharded(self.state.graph, self.mesh, self.cache_cam, bc)
         else:
-            self.state.graph, _, _ = global_graph.global_solve(self.state.graph, self.cache_cam, bc)
+            global_graph.global_solve(self.state.graph, self.cache_cam, bc)
 
     def _post_revalidate_solve(self) -> None:
         if self.num_keyframes > 1:
@@ -899,9 +1067,7 @@ class BundleFusion:
     def _publish_trajectory(self) -> None:
         if self.chunk_count == 0 and self.num_keyframes == 0:
             return
-        st = self.state
-        st.traj = _publish_all(st.traj, st.local_trajs, st.chunk_valid, st.graph.poses, st.graph.valid, self.S,
-                               self.chunk_frames)
+        _publish_all(self.state, self.S, self.chunk_frames)
 
     # ------------------------------------------------------------------
     # finalize: host-store re-integration service
@@ -922,8 +1088,13 @@ class BundleFusion:
         cf, h, w = self.chunk_frames, self.int_cam.height, self.int_cam.width
         empty_d = torch.zeros((cf, h, w), dtype=torch.int16, device=dev)
         empty_c = torch.zeros((cf, h // 2, w // 2, 3), dtype=torch.uint8, device=dev)
-        empty_ids = torch.zeros(cf, dtype=torch.int64, device=dev)
-        empty_valid = torch.zeros(cf, dtype=torch.bool, device=dev)
+        # no new frames; the diagnostics go to the runlog's scratch row
+        service = StepInputs(
+            chunk=torch.full((), self.max_chunks, dtype=torch.int32, device=dev),
+            new_ids=torch.zeros(cf, dtype=torch.int64, device=dev),
+            new_valid=torch.zeros(cf, dtype=torch.bool, device=dev),
+            exclude_from=torch.full((), self.num_frames, dtype=torch.int32, device=dev),
+        )
         no_integrate = torch.zeros((), dtype=torch.bool, device=dev)
         total = 0
         for _ in range(rounds):
@@ -948,10 +1119,8 @@ class BundleFusion:
                 st.hist_c8[sl] = torch.as_tensor(np.stack([self._frame_store[f][1] for f in ups]), device=dev)
                 st.ring_frame[sl] = torch.as_tensor(ups, dtype=torch.int32, device=dev)
                 self._ring_uploads += len(ups)
-            _plan_and_fuse(
-                st, ac, self.int_cam, self.max_chunks, torch.zeros(9, device=dev), empty_d, empty_c, empty_ids,
-                empty_valid, no_integrate, exclude_from=self.num_frames, budget=budget,
-            )
+            _plan_and_fuse(st, ac, self.int_cam, service, torch.zeros(9, device=dev), empty_d, empty_c, no_integrate,
+                           budget)
             total += len(chosen)
         return total
 
@@ -993,13 +1162,15 @@ class BundleFusion:
         self.sync()
         self._finalized = True
         self._bp_events.clear()
-        if self.num_keyframes > 1 and int(self.state.ctrl.reloc_events) > self._reloc_seen:
-            # each call is bounded; loop until no progress so long stale
-            # chains still unwind
-            while self._revalidate_stale():
-                self._post_revalidate_solve()
-        self._service_reintegration()
-        self._emit_runlog()
+        with self._device_ctx():  # in stream order with the chunk step
+            if self.num_keyframes > 1 and int(self.state.ctrl.reloc_events) > self._reloc_seen:
+                # each call is bounded; loop until no progress so long stale
+                # chains still unwind
+                while self._revalidate_stale():
+                    self._post_revalidate_solve()
+            self._service_reintegration()
+            self._emit_runlog()
+        self.sync()
 
     def _emit_runlog(self) -> None:
         rows = self.state.runlog_rows[: self.chunk_count].cpu().numpy()

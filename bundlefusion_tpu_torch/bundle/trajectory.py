@@ -57,9 +57,11 @@ def plan_reintegration(ts: TrajectoryState, budget: int, rot_thresh: float = 0.0
                        exclude_from=None, ring_frame=None) -> ReintPlan:
     """Pick the ``budget`` frames most in need of fusion work: invalidated
     (de-integrate only), then missing (integrate only), then moved (both,
-    worst drift first). With ``ring_frame`` (the device ring's residency
-    map, slot = id % R) every ring-resident candidate outranks every spilled
-    one."""
+    worst drift first). Frames from ``exclude_from`` on are no candidates:
+    a 0-d int32 device tensor in the chunk step (a Python int there would
+    bake the chunk into its captured graph). With ``ring_frame`` (the device
+    ring's residency map, slot = id % R) every ring-resident candidate
+    outranks every spilled one."""
     ang, dist = se3.pose_distance(ts.integrated_pose, ts.opt_pose)
     delta = ang + dist
     moved = ts.integrated & ts.opt_valid & ((ang > rot_thresh) | (dist > trans_thresh))

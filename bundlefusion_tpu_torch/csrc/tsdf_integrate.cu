@@ -48,6 +48,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace {
 
 constexpr int kNvox = 512;
@@ -236,14 +240,30 @@ extern "C" int bf_tsdf_fuse(
     err = cudaFuncSetAttribute(tsdf_fuse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  // a persistent grid: one wave of resident CTAs, or fewer for a short list
-  int device = 0, sms = 0, per_sm = 0;
+  int device = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tsdf_fuse_kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  // a persistent grid: one wave of resident CTAs, or fewer for a short list.
+  // The wave is asked once per device and shared-memory size, not at every
+  // launch (the launches inside a CUDA graph capture query nothing).
+  static std::mutex waves_lock;
+  static std::map<std::pair<int, size_t>, long long> waves;
+  long long wave = 0;
+  {
+    std::lock_guard<std::mutex> hold(waves_lock);
+    const auto found = waves.find({device, smem});
+    if (found != waves.end()) wave = found->second;
+  }
+  if (wave == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+      return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tsdf_fuse_kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    wave = (long long)sms * (per_sm > 0 ? per_sm : 1);
+    std::lock_guard<std::mutex> hold(waves_lock);
+    waves[{device, smem}] = wave;
+  }
+  long long grid = wave;
   if (grid > max_entries) grid = max_entries;
   const Rows rows{keys, slots, masks, key_stride, slot_stride, mask_stride, cap};
   const FuseScalars k{voxel_size, block_m, trunc_base, trunc_scale, max_dist, max_weight, w_sample, inv255};

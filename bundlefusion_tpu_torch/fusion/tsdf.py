@@ -260,6 +260,7 @@ def _log2_ratio(n: int, m: int, what: str) -> int:
     return shift
 
 
+@kernels.counted
 def integrate_blocks(
     table: BlockTable,
     rows: FuseRows,
@@ -316,9 +317,6 @@ def _launch_fuse(table: BlockTable, rows: FuseRows, union: torch.Tensor, depths:
     )
     kernels.check(err, "tsdf_fuse")
     integrate_blocks.launches += 1
-
-
-integrate_blocks.launches = 0
 
 
 def patch_overflow_count(

@@ -99,6 +99,18 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+# the kernel wrappers, each counting its kernel's launches in ``.launches``
+# (a captured CUDA graph adds its kernels' launches at every replay)
+COUNTED: list = []
+
+
+def counted(fn):
+    """Register a kernel wrapper whose ``.launches`` counts its launches."""
+    fn.launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")

@@ -223,6 +223,7 @@ def _preprocess_chain_torch(
     return fdepth, points, normals
 
 
+@kernels.counted
 def fused_preprocess(
     depth: torch.Tensor,  # [N, H, W] float32, 0 = invalid
     cam: CameraModel,
@@ -259,9 +260,6 @@ def fused_preprocess(
     kernels.check(err, "preprocess")
     fused_preprocess.launches += 1
     return fdepth, points, normals
-
-
-fused_preprocess.launches = 0
 
 
 def color_to_intensity(color: torch.Tensor) -> torch.Tensor:

@@ -35,11 +35,19 @@ import torch
 
 from ..bundle import chunk as chunk_mod
 from ..bundle import global_graph
-from ..bundle.pipeline import FusionState, _graph_step, _plan_and_fuse, _publish_all, make_fusion_state
+from ..bundle.pipeline import (
+    FusionState,
+    _graph_step,
+    _plan_and_fuse,
+    _publish_all,
+    make_fusion_state,
+    step_inputs,
+)
 from ..config import Config
 from ..fusion import blocks, marching_cubes
 from ..geometry.camera import CameraModel
 from ..io import framewire
+from ..utils.tensor_ops import copy_into
 from .mesh import Mesh
 
 
@@ -116,24 +124,20 @@ class ShardedRun:
             dep, col, self.cam, self.cache_cam, bc, sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
             filter_depth=ac.depth_filter and not ac.integrate_filtered_depth,
         )
-        sh.graph, sh.ctrl, integrate_mask, stats_in = _graph_step(
-            sh.graph, sh.ctrl, c, res, sh.local_trajs, sh.chunk_valid, sh.anchor, self.cache_cam, bc,
-            is_first=(c == 0),
-        )
+        # the chunk's inputs, made on the device; the step updates sh in place
+        step = step_inputs(c, S, cf, dep.device)
+        integrate_mask, stats_in = _graph_step(sh, step, res, self.cache_cam, bc, is_first=(c == 0))
         if c > 0:
-            sh.graph, _, _ = global_graph.global_solve(sh.graph, self.cache_cam, bc)
-        sh.traj = _publish_all(sh.traj, sh.local_trajs, sh.chunk_valid, sh.graph.poses, sh.graph.valid, S, cf)
+            global_graph.global_solve(sh.graph, self.cache_cam, bc)
+        _publish_all(sh, S, cf)
         # a fixed new-frame width: the overlap frame (already integrated)
         # is a masked row after chunk 0
-        lo = 0 if c == 0 else 1
-        first = c * S
-        new_ids = torch.arange(first, first + cf, device=dep.device)
-        new_valid = torch.arange(cf, device=dep.device) >= lo
-        _plan_and_fuse(sh, ac, self.cam, c, stats_in, dep, col, new_ids, new_valid, integrate_mask,
-                       exclude_from=first + lo, budget=ac.max_reintegrations_per_frame * S)
+        _plan_and_fuse(sh, ac, self.cam, step, stats_in, dep, col, integrate_mask,
+                       budget=ac.max_reintegrations_per_frame * S)
         if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
-            sh.table, freed = blocks.garbage_collect(sh.table)
-            sh.gc_freed_total = sh.gc_freed_total + freed.to(torch.float32)
+            table, freed = blocks.garbage_collect(sh.table)
+            copy_into(sh.table, table)
+            sh.gc_freed_total.add_(freed.to(torch.float32))
 
     def outputs(self) -> ShardedOutputs:
         """The run's first device reads: poses, validity and runlogs, each

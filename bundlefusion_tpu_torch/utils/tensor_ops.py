@@ -9,11 +9,19 @@
   run-dependent order. Inside this context it takes PyTorch's sort-based
   deterministic path, which sums duplicates in index order, as the JAX
   package's CPU and TPU scatters do.
+* ``row`` / ``put_row``: read or write row ``k`` of a tensor, ``k`` a 0-d
+  index tensor on the device (the JAX step's traced index). Indexing with a
+  0-d tensor would read it on the host, and a Python int would bake the row
+  into a captured step, so both go through a 1-element index.
+* ``copy_into``: the port's donation. A step's new state is written into the
+  old state's tensors, which keep their storage (a captured CUDA graph
+  addresses them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 
@@ -50,3 +58,33 @@ def deterministic():
         yield
     finally:
         torch.use_deterministic_algorithms(prev)
+
+
+def _at(k: torch.Tensor) -> torch.Tensor:
+    return k.reshape(1).long()
+
+
+def row(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``x[k]`` for a 0-d index tensor ``k``, without a host read."""
+    return x.index_select(0, _at(k))[0]
+
+
+def put_row(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """``x[k] = v`` in place for a 0-d index tensor ``k``."""
+    x.index_copy_(0, _at(k), v.to(x.dtype).unsqueeze(0))
+
+
+def copy_into(dst, src) -> None:
+    """Write every tensor of ``src`` into the tensor in the same field of
+    ``dst`` (nested dataclasses of the same classes), in place. A field
+    holding the very same tensor is left alone."""
+    for f in dataclasses.fields(dst):
+        d, s = getattr(dst, f.name), getattr(src, f.name)
+        if s is d:
+            continue
+        if isinstance(d, torch.Tensor):
+            d.copy_(s)
+        elif dataclasses.is_dataclass(d):
+            copy_into(d, s)
+        else:
+            raise TypeError(f"copy_into: field {f.name} holds {type(d).__name__}, not state")

@@ -105,12 +105,14 @@ exits non-zero; there is no CPU fallback):
                 runlog's ``alloc_overflow`` and ``upd_truncated`` (reported,
                 not asserted), active blocks, peak memory, ATE <= 0.5 cm,
                 render_preview at 320x240.
- 14. bench    — two warm flagship passes of the bench's ``run_pass`` in
+ 14. bench    — after an untraced warm pass (it captures the chunk step's
+                graphs), two flagship passes of the bench's ``run_pass`` in
                 this process: one with the device's activity alone traced
                 (the busy share: the union of device intervals over the
                 pass's host seconds; the longest idle gaps; one K1 and one
                 K2 launch per chunk), one under torch.profiler with host ops
-                of every thread (kernel launches per frame, the top 10
+                of every thread (kernel launches and host launch calls per
+                frame, the top 10
                 device operations, the 5 longest idle gaps with the host
                 spans open during each, idle time by stage; the gzipped
                 trace goes to ``chiprun_out/``); a profile without device
@@ -120,11 +122,29 @@ exits non-zero; there is no CPU fallback):
                 and at 320x240 with 32,768 blocks (3 passes): its result
                 line (the median fps) and diagnostics with the card's name
                 and power limit; ATE <= 0.5 cm, the noisy pass's valid
-                fraction 1.0, every chunk valid, and equal GN iterations and
-                blocks updated in every pass (the bench raises otherwise).
+                fraction 1.0, every chunk valid, every timed pass replaying
+                the warm pass's graphs, and equal GN iterations and blocks
+                updated in every pass (the bench raises otherwise).
 
-Phases 6-14 set the kernels' launch counts to 0 before their run and read
-them after it: each of their paths must launch both kernels. Small outputs
+ 15. graphs   — the chunk step as captured CUDA graphs (``utils/graphs.py``,
+                the default everywhere above) against the eager step
+                (``graphs.disable_graphs()``) on phase 4's 66 frames: a
+                graphed pass on a fresh executable (capture seconds per
+                stage, its readbacks), then interleaved timed passes (E G G
+                E E G: fps, stage means, peak memory each way), a graphed
+                pass under the sync counter, and a device-only trace each
+                way (busy share, device kernels and host launch calls per
+                frame). Every pass bit-equal in its state digests and poses;
+                a graphed pass replays each stage once per steady chunk; one
+                K1 and one K2 launch per chunk counted through replays; 0
+                readbacks; ATE <= 0.5 cm, every chunk valid.
+
+Phases 4-14 run the chunk step graphed (each stage captured at a pipeline's
+second steady chunk when its executable is fresh, replayed after); phase 5's
+window replays the executable phase 4 captured, and says so. Phases 6-15
+set the kernels' launch counts to 0 before their run and read them after
+it (a replay adds the launches its graph captured): each of their paths
+must launch both kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
@@ -136,6 +156,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import dataclasses
+import gc
 import gzip
 import hashlib
 import io
@@ -186,7 +207,8 @@ BENCH_RUNS = (
 )
 # the diagnostics bench.py prints (bench.py:138-166), and the port's own
 BENCH_KEYS = ("ate_cm", "keyframes", "blocks", "gn_iters_per_sec", "voxel_updates_per_sec", "timing",
-              "ate_noisy_cm", "noisy_valid_fraction", "fps_passes", "device")
+              "ate_noisy_cm", "noisy_valid_fraction", "fps_passes", "device", "graph_replays", "capture_s",
+              "timed_replayed_cached_graphs")
 
 # The least time the card could take (the larger of bytes over the memory
 # rate and operations over their unit's rate). Published peaks of one H100
@@ -486,7 +508,11 @@ def run_pass(seq, cfg, dev, push_seconds: list | None = None, wrap=None, profile
                 push_seconds.append(time.perf_counter() - t1)
 
             bf.push_frame = timed_push
-        steady() if wrap is None else wrap(steady)
+        try:
+            steady() if wrap is None else wrap(steady)
+        finally:
+            if push_seconds is not None:
+                del bf.push_frame  # no cycle through the hook: the pipeline frees its executable when dropped
 
     return bench.run_pass(seq, cfg, dev, profile=profile, wrap=outer)
 
@@ -663,6 +689,11 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
         bf.flush()
 
     sites = sync_sites(torch, steady)
+    captured = sorted(k for k, v in bf.graph_stats.items() if v["captured"])
+    phase("syncs", f"the chunk step replayed the graphs phase 4 captured (captured in this window: {captured}); "
+          f"replays {({k: v['replays'] for k, v in bf.graph_stats.items()})}")
+    if captured:
+        raise AssertionError(f"phase 5's window holds a capture ({captured}): the flagship executable was not reused")
     phase("syncs", f"{len(sites)} readbacks in {FLAGSHIP_FRAMES} steady-state pushes (controls: 1 of 1 seen on the "
           f"caller's thread, 1 of 1 on the dispatch worker, 0 for a CUDA event wait; error mode on the worker raised "
           f"through its future: {raised!r}); by site {by_site(sites)}; ingest waits that blocked (CUDA events and worker futures, "
@@ -737,8 +768,10 @@ def state_digests(torch, bf, extra=None) -> dict[str, object]:
 def digest_run(torch, T, seq, cfg, dev):
     """One pass over ``seq`` that records, after every stage of every chunk,
     the digests of the whole state (the chunk step's result too, after
-    chunk_local). Returns ([(chunk, stage, digests)], pipeline). The
-    digests read the device, so such a pass is neither timed nor counted."""
+    chunk_local: ``process_chunk``'s return where it ran, the captured
+    program's outputs where a graph replayed). Returns ([(chunk, stage,
+    digests)], pipeline). The digests read the device, so such a pass is
+    neither timed nor counted."""
     from bundlefusion_tpu_torch.bundle import chunk as chunk_mod
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 
@@ -757,7 +790,9 @@ def digest_run(torch, T, seq, cfg, dev):
             yield
         if name == "upload":  # the upload worker: it runs beside the chunk step
             return
-        extra = {"chunk_result": last.pop("chunk_result")} if name == "chunk_local" else None
+        extra = None
+        if name == "chunk_local":  # a replay runs no Python: read the program's outputs
+            extra = {"chunk_result": last.pop("chunk_result", None) or bf._exe.programs[name].outputs}
         recs.append((bf.chunk_count, name, state_digests(torch, bf, extra)))
 
     bf.timing.stage = stage
@@ -768,6 +803,7 @@ def digest_run(torch, T, seq, cfg, dev):
         bf.flush()
     finally:
         chunk_mod.process_chunk = process_chunk
+        del bf.timing.stage  # no cycle through the hook: the pipeline frees its executable when dropped
     return recs, bf
 
 
@@ -1559,6 +1595,9 @@ def bench_subprocess(name: str, env_extra: dict, smi: str) -> dict:
     missing = [k for k in BENCH_KEYS if k not in diag]
     if missing:
         raise AssertionError(f"bench {name}: diagnostics lack {missing}")
+    if not diag["timed_replayed_cached_graphs"]:
+        raise AssertionError(f"bench {name}: a timed pass did not replay the warm pass's graphs: "
+                             f"{diag['graph_replays']}")
     if not (diag["ate_cm"] <= 0.5 and diag["noisy_valid_fraction"] == 1.0 and all(diag["chunks_valid"])):
         raise AssertionError(f"bench {name}: ATE {diag['ate_cm']} cm, noisy valid fraction "
                              f"{diag['noisy_valid_fraction']}, chunks valid {diag['chunks_valid']}")
@@ -1591,6 +1630,19 @@ def short_kernel(name: str) -> str:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the host's calls that put work on the device: a kernel launch, a whole
+# CUDA graph's launch, an asynchronous copy or fill
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def launch_calls(events: list, w0: float, w1: float) -> dict:
+    """The host's launch calls (``LAUNCH_CALLS``) in a trace window, by name."""
+    out: dict = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and e["name"] in LAUNCH_CALLS and w0 <= float(e["ts"]) < w1:
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
 
 
 def trace_events(prof, path: str) -> list:
@@ -1689,9 +1741,11 @@ def summarize_trace(events: list, span: str, frames: int) -> dict:
                 open_spans["caller" if tid == caller else f"thread {tid}"] = " > ".join(chain[-3:])
         gap_rows.append(dict(ms=length / 1e3, at_ms=(start - w0) / 1e3, host=open_spans))
     kernels = sum(1 for e in dev if e["cat"] == "kernel")
+    calls = launch_calls(events, w0, w1)
     return dict(
         window_ms=(w1 - w0) / 1e3, busy_share=busy / (w1 - w0), device_ms=total / 1e3, kernels=kernels,
         launches_per_frame=kernels / frames, memcpy_memset=len(dev) - kernels,
+        host_launch_calls=calls, host_launch_calls_per_frame=sum(calls.values()) / frames,
         top=[dict(op=k, ms=v[0] / 1e3, count=v[1], share=v[0] / total) for k, v in top], gaps=gap_rows,
         threads=len(by_tid), idle_by_stage=dict(sorted(idle_by_stage.items(), key=lambda kv: -kv[1])),
     )
@@ -1722,7 +1776,9 @@ def device_busy(torch, seq, cfg, dev) -> dict:
     launches, chunks = read_launches(), bf.chunk_count
     del bf
     path = os.path.join(OUT_DIR, "bench_profile_cuda.json")
-    dev_events = [e for e in trace_events(prof, path) if e.get("cat") in DEVICE_CATS]
+    events = trace_events(prof, path)
+    dev_events = [e for e in events if e.get("cat") in DEVICE_CATS]
+    calls = launch_calls(events, float("-inf"), float("inf"))
     os.remove(path)
     if not dev_events:
         raise AssertionError("the device-only trace holds no device event")
@@ -1734,7 +1790,8 @@ def device_busy(torch, seq, cfg, dev) -> dict:
     return dict(window_ms=window["s"] * 1e3, fps=len(seq.poses) / window["s"], busy_share=busy_us / (window["s"] * 1e6),
                 device_span_ms=(merged[-1][1] - merged[0][0]) / 1e3, kernels=kernels,
                 launches_per_frame=kernels / len(seq.poses), gaps=[dict(ms=g / 1e3, at_ms=t / 1e3) for g, t in gaps],
-                launches=launches, chunks=chunks)
+                launches=launches, chunks=chunks, host_launch_calls=calls,
+                host_launch_calls_per_frame=sum(calls.values()) / len(seq.poses))
 
 
 def device_profile(torch, seq, cfg, dev) -> dict:
@@ -1761,7 +1818,8 @@ def device_profile(torch, seq, cfg, dev) -> dict:
 
 
 def run_bench(torch, T, dev, kernels_out, seq) -> None:
-    """Phase 14: in this process, two warm flagship passes of the bench's
+    """Phase 14: in this process, after an untraced warm pass (it captures
+    the chunk step's graphs), two flagship passes of the bench's
     ``run_pass``: one with the device's activity alone traced (the busy
     share near the unprofiled rate, and one K1 and one K2 launch per
     chunk), one under the full profiler (launches per frame, the top device
@@ -1769,19 +1827,24 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     ``python -m bundlefusion_tpu_torch.bench``, at bench.py's two sizes in
     subprocesses."""
     from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.bundle import pipeline as pipe
 
     smi = bench.device_line(dev)
     cfg = bench.bench_config(*FULL, 262144)
     os.makedirs(OUT_DIR, exist_ok=True)
-    # the earlier phases left the allocator's cache warm: these passes make
-    # no cudaMalloc
+    # a warm pass first: it captures the chunk step's graphs (the phase
+    # starts without idle executables) and warms the allocator's cache, so
+    # the traced passes replay and make no cudaMalloc
+    bf, _ = bench.run_pass(seq, cfg, dev)
+    del bf
     busy = device_busy(torch, seq, cfg, dev)
     one_launch_per_chunk(kernels_out, "bench", busy["launches"], busy["chunks"])
     full = device_profile(torch, seq, cfg, dev)
     phase("bench", f"device-only trace ({smi}): a warm flagship pass, {busy['fps']:.3f} fps; busy "
           f"{busy['busy_share'] * 100:.1f}% of {busy['window_ms']:.1f} ms (union of kernels, memcpy, memset; first "
           f"to last device event {busy['device_span_ms']:.1f} ms); {busy['kernels']} kernels, "
-          f"{busy['launches_per_frame']:.1f} per frame; launches {busy['launches']} over {busy['chunks']} chunks")
+          f"{busy['launches_per_frame']:.1f} per frame; launches {busy['launches']} over {busy['chunks']} chunks; "
+          f"host launch calls {busy['host_launch_calls']} ({busy['host_launch_calls_per_frame']:.1f} per frame)")
     for i, g in enumerate(busy["gaps"]):
         phase("bench", f"  device-only idle gap {i + 1}: {g['ms']:.3f} ms at +{g['at_ms']:.1f} ms after the first "
               "device event")
@@ -1791,7 +1854,8 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     phase("bench", f"full profile: window {full['window_ms']:.1f} ms, busy {full['busy_share'] * 100:.1f}% (union of "
           f"kernels, memcpy, memset); {full['kernels']} kernels, {full['launches_per_frame']:.1f} per frame; "
           f"{full['memcpy_memset']} memcpy/memset; device time {full['device_ms']:.1f} ms; {full['threads']} host "
-          "threads traced")
+          f"threads traced; host launch calls {full['host_launch_calls']}, "
+          f"{full['host_launch_calls_per_frame']:.1f} per frame")
     for i, row in enumerate(full["top"]):
         phase("bench", f"  top {i + 1}: {row['ms']:9.2f} ms {row['share'] * 100:5.1f}% x{row['count']:<6} {row['op']}")
     for i, g in enumerate(full["gaps"]):
@@ -1799,7 +1863,8 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     idle = {k: round(v, 2) for k, v in full["idle_by_stage"].items()}
     phase("bench", f"  idle ms by the stage open on the worker threads: {json.dumps(idle)}")
 
-    torch.cuda.empty_cache()  # the card's memory is the subprocesses'
+    pipe._EXECUTABLES.clear()  # the card's memory is the subprocesses'
+    torch.cuda.empty_cache()
     runs = {name: bench_subprocess(name, env, smi) for name, env in BENCH_RUNS}
     fps = runs["flagship"]["result"]["value"]
     phase("bench", f"the bench's flagship median {fps} fps unprofiled against {busy['fps']:.3f} with the "
@@ -1807,6 +1872,110 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     runs.update(busy=busy, profile=full)
     with open(os.path.join(OUT_DIR, "bench_runs.json"), "w") as f:
         json.dump(runs, f, indent=1)
+
+
+STAGES = ("chunk_local", "graph_step", "global_solve", "publish", "plan_fuse")
+GRAPH_ORDER = ("eager", "graphed", "graphed", "eager", "eager", "graphed")  # the timed passes, interleaved
+
+
+def graph_pass(torch, seq, cfg, dev, mode: str, watch: bool = False) -> dict:
+    """One flagship pass of ``bench.run_pass`` with the chunk step graphed
+    (the default) or eager (``graphs.disable_graphs()``): fps, launches,
+    peak memory, the programs' graphs and replays, the state's digests
+    before finalize, poses, validity, stage means; with ``watch`` the
+    readbacks of the pushes and the flush."""
+    from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.utils import graphs
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sites: dict = {}
+    wrap = (lambda steady: sites.update(r=sync_sites(torch, steady))) if watch else None
+    with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+        bf, dt = run_pass(seq, cfg, dev, wrap=wrap)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    digests = state_digests(torch, bf)
+    out = bf.outputs()
+    rec = dict(mode=mode, fps=len(seq.poses) / dt, launches=launches, chunks=bf.chunk_count, peak_gib=peak,
+               stats=bf.graph_stats, digests=digests, poses=out.poses, valid=out.valid, ate=bench.ate_of(out, seq),
+               syncs=sites.get("r"), valid_chunks=[r["chunk_valid"] for r in bf.runlog.records if "chunk" in r],
+               means={k: v["mean_ms"] for k, v in bf.timing.summary().items()})
+    del bf, out
+    return rec
+
+
+def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
+    """Phase 15: the chunk step as captured CUDA graphs (``utils/graphs.py``)
+    against the eager step (``graphs.disable_graphs()``) on the flagship 66
+    frames. A graphed pass on a fresh executable (warm-up at chunk 1,
+    capture at chunk 2; its readbacks counted), an eager warm pass, then
+    interleaved timed passes (E G G E E G) on the reused executable, then a
+    graphed pass under the sync counter and one device-only trace each way.
+    Every pass's state digests and poses equal; a graphed pass on a reused
+    executable replays every stage once per steady chunk; one K1 and one K2
+    launch per chunk, counted through replays; 0 readbacks; ATE <= 0.5 cm,
+    every chunk valid."""
+    from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.utils import graphs
+
+    smi = bench.device_line(dev)
+    pipe._EXECUTABLES.clear()  # a fresh executable: this phase's first pass captures
+    torch.cuda.empty_cache()
+    first = graph_pass(torch, seq, cfg, dev, "graphed", watch=True)
+    passes = [first, graph_pass(torch, seq, cfg, dev, "eager")]
+    timed = [graph_pass(torch, seq, cfg, dev, mode) for mode in GRAPH_ORDER]
+    watched = graph_pass(torch, seq, cfg, dev, "graphed", watch=True)
+    passes += timed + [watched]
+    chunks = first["chunks"]
+    capture = {k: v["capture_s"] for k, v in first["stats"].items()}
+    phase("graphs", f"flagship {FULL[0]}x{FULL[1]}, {len(seq.poses)} frames, {chunks} chunks ({smi}): first graphed "
+          f"pass on a fresh executable {first['fps']:.3f} fps, capture s by stage {json.dumps(capture)} "
+          f"({sum(capture.values()):.3f} s in all), its readbacks {len(first['syncs'])} {by_site(first['syncs'])}")
+    for mode in ("graphed", "eager"):
+        fps = [p["fps"] for p in timed if p["mode"] == mode]
+        means = {k: round(statistics.mean(p["means"][k] for p in timed if p["mode"] == mode), 3)
+                 for k in STAGES + ("whole_chunk_step",)}
+        peak = max(p["peak_gib"] for p in timed if p["mode"] == mode)
+        phase("graphs", f"{mode}: timed fps {[round(x, 3) for x in fps]} (interleaved {'/'.join(GRAPH_ORDER)}), "
+              f"median {statistics.median(fps):.3f}; stage means (ms, CUDA events; whole_chunk_step host clock) "
+              f"{json.dumps(means)}; peak memory {peak:.3f} GiB")
+    replays = {k: v["replays"] for k, v in watched["stats"].items()}
+    phase("graphs", f"graphed pass on the reused executable: replays {replays} over {chunks - 1} steady chunks; "
+          f"launches {watched['launches']}; readbacks {len(watched['syncs'])}; ATE {watched['ate'] * 100:.4f} cm")
+    ref = first
+    for p in passes:
+        diff = sorted(k for k in ref["digests"] if ref["digests"][k] != p["digests"].get(k))
+        if diff or not np.array_equal(ref["poses"], p["poses"]) or not np.array_equal(ref["valid"], p["valid"]):
+            raise AssertionError(f"a {p['mode']} pass differs from the first graphed pass: {diff[:8]}")
+        if p["launches"] != {"tsdf_integrate": chunks, "preprocess": chunks}:
+            raise AssertionError(f"{p['mode']}: expected one K1 and one K2 launch per chunk: {p['launches']}")
+        if p["chunks"] != chunks or not all(p["valid_chunks"]) or not p["ate"] <= 0.005:
+            raise AssertionError(f"{p['mode']}: chunks valid {p['valid_chunks']}, ATE {p['ate'] * 100:.4f} cm")
+    phase("graphs", f"{len(passes)} passes ({sum(p['mode'] == 'graphed' for p in passes)} graphed): state digests "
+          f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in each")
+    if any(not first["stats"].get(k, {}).get("captured") or first["stats"][k]["replays"] != chunks - 2 for k in STAGES):
+        raise AssertionError(f"the first pass did not capture every stage and replay it from chunk 2: {first['stats']}")
+    if any(watched["stats"].get(k, {}).get("replays") != chunks - 1 or watched["stats"][k]["captured"] for k in STAGES):
+        raise AssertionError(f"a graphed pass on the reused executable does not replay once per steady chunk: "
+                             f"{watched['stats']}")
+    if watched["syncs"]:
+        raise AssertionError(f"readbacks in the graphed steady state: {by_site(watched['syncs'])}")
+    record_launches(kernels_out, "graphs", watched["launches"])
+
+    # the device-only trace each way (phase 14's, on this phase's executable)
+    busy = {"graphed": device_busy(torch, seq, cfg, dev)}
+    with graphs.disable_graphs():
+        busy["eager"] = device_busy(torch, seq, cfg, dev)
+    for mode, b in busy.items():
+        phase("graphs", f"device-only trace, {mode}: {b['fps']:.3f} fps; busy {b['busy_share'] * 100:.1f}% of "
+              f"{b['window_ms']:.1f} ms; device kernels {b['kernels'] / len(seq.poses):.1f} per frame; host launch "
+              f"calls {b['host_launch_calls_per_frame']:.1f} per frame {b['host_launch_calls']}")
+    with open(os.path.join(OUT_DIR, "graphs_phase.json"), "w") as f:
+        json.dump(dict(device=smi, chunks=chunks, capture_s=capture, busy=busy,
+                       passes=[{k: p[k] for k in ("mode", "fps", "peak_gib", "means", "stats", "launches")}
+                               for p in passes]), f, indent=1)
 
 
 def main() -> int:
@@ -1817,6 +1986,7 @@ def main() -> int:
         return 1
     import bundlefusion_tpu_torch as T
     from bundlefusion_tpu_torch import bench, kernels
+    from bundlefusion_tpu_torch.bundle import pipeline as pipe
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -1828,15 +1998,23 @@ def main() -> int:
     phase("build", f"nvcc build {secs:.2f} s -> {kernels.LIB_PATH}")
 
     def timed(name, fn, *args):
+        # each phase starts without the idle executables (graphs and state)
+        # of the phases before it, but for phase 5, which replays phase 4's
+        if name != "syncs":
+            pipe._EXECUTABLES.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         out = fn(*args)
-        phase(name, f"phase {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        phase(name, f"phase {time.perf_counter() - t0:.1f} s; card memory after it: allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved {torch.cuda.memory_reserved() / 2**30:.3f} "
+              f"GiB, {len(pipe._EXECUTABLES._free)} idle executables")
         return out
 
     kern = timed("kernels", check_kernels, torch, T, dev)
     seq, cfg, ref = timed("slice", run_slice, torch, T, dev, kern)
     timed("syncs", count_syncs, torch, T, seq, cfg, dev)
-    torch.cuda.empty_cache()
     timed("stream", run_stream, torch, T, dev, kern)
     timed("reloc", run_reloc, torch, T, dev, kern)
     timed("app", run_app, torch, T, dev, kern)
@@ -1846,6 +2024,7 @@ def main() -> int:
     timed("ingest", run_ingest, torch, T, dev, kern, seq, cfg, ref)
     timed("paths", run_paths, torch, T, dev, kern, seq, cfg, ref)
     timed("bench", run_bench, torch, T, dev, kern, seq)
+    timed("graphs", run_graphs, torch, T, dev, kern, seq, cfg)
 
     print(smi)
     print(json.dumps({"kernels": kern}))
