@@ -11,10 +11,11 @@ The environment sets the run as it does for ``bench.py``: ``BENCH_WIDTH``
 (262,144), ``BENCH_NOISE`` (1) and ``BENCH_PASSES`` (5). The 80x60 cache
 of ``bench.py``'s configuration must divide the frame size.
 
-On a card the chunk step runs as captured CUDA graphs (``utils/graphs.py``):
-the warm pass captures them, and the timed passes, on fresh pipelines,
-replay them from the executable cache (``graph_replays``, ``capture_s`` and
-``timed_replayed_cached_graphs`` in the diagnostics say so).
+On a card the chunk step runs as captured CUDA graphs (``utils/graphs.py``),
+chunk 0 included: the warm pass captures them, and the timed passes, on
+fresh pipelines, replay them from the executable cache and capture nothing
+(``graph_replays``, ``capture_s`` and ``timed_replayed_cached_graphs`` in
+the diagnostics say so; :func:`expected_replays` gives each stage's count).
 
 Progress lines and the diagnostics (JSON) go to stderr; the last line of
 stdout is ``{"metric", "value", "unit", "vs_baseline"}``. ``value`` is the
@@ -135,6 +136,17 @@ def ate_of(out, seq) -> float:
     return ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
 
 
+def expected_replays(chunks: int, cfg) -> dict[str, int]:
+    """The replays of each program of the chunk step in a pass of ``chunks``
+    chunks on an executable that holds every graph already: chunk_local,
+    publish and plan_fuse every chunk, graph_step_first chunk 0's,
+    graph_step and global_solve every later chunk's, gc every
+    ``gc_every_chunks`` chunks."""
+    gc_every = cfg.app.gc_every_chunks
+    return {"chunk_local": chunks, "graph_step_first": 1, "graph_step": chunks - 1, "global_solve": chunks - 1,
+            "publish": chunks, "plan_fuse": chunks, "gc": chunks // gc_every if gc_every else 0}
+
+
 def run(width: int, height: int, frames: int, blocks: int, passes: int, noise: bool, device, *, progress=None):
     """The bench: returns (result, diagnostics, counters). ``result`` is the
     JSON line; ``diagnostics`` carries every key ``bench.py`` prints plus
@@ -210,7 +222,8 @@ def run(width: int, height: int, frames: int, blocks: int, passes: int, noise: b
         # pass replayed graphs captured before it (none on the CPU)
         "graph_replays": replays,
         "capture_s": capture_s,
-        "timed_replayed_cached_graphs": not captured and all(n == chunks - 1 for r in replays.values() for n in r),
+        "timed_replayed_cached_graphs": not captured and replays == {
+            k: [n] * passes for k, n in expected_replays(chunks, cfg).items() if n},
     }
     if cuda:
         diagnostics["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30

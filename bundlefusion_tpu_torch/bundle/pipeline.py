@@ -27,26 +27,31 @@ in chunk order; every public accessor calls it. ``BF_SYNC_INGEST=1`` or
 also makes every timed stage wait for the device at its end, and turns the
 backpressure off.
 
-Execution, as in the JAX package: the chunk step runs as five stages
-(``chunk_local``, ``graph_step``, ``global_solve``, ``publish``,
-``plan_fuse``), each of which the JAX package compiles into one XLA program
-that donates the state's buffers and is dispatched once per chunk. Here each
-stage after chunk 0 runs through a ``utils/graphs.py`` program: on a card it
-runs eagerly at the first steady chunk (the warm-up), is captured as a CUDA
-graph at the second and replayed at every later one. That requires what
-jit's donation gives the JAX step, and the port keeps it on the CPU as well:
-every state tensor keeps its storage (each stage writes its results into the
-state in place, ``copy_into`` where a function builds new arrays), the
-chunk's frames are copied into static wire buffers, and the chunk index and
-the frame ids come from device tensors (:class:`StepInputs`) that the step
-advances itself, so the step's operations are the same at every chunk.
-Chunk 0 stays eager (the JAX package compiles its ``is_first`` graph step
-separately), as do GC, streaming, revalidation, ``finalize()`` and the
-upload's unpack: host decisions, or work off the step. The graphs, the
-state and the compute stream form one executable, kept by (configuration,
-device, camera) in a process-wide cache: a new pipeline takes an idle one
-and resets its state in place, as a new JAX pipeline reuses jit's programs.
-``utils/graphs.disable_graphs()`` runs the step eagerly on a card.
+Execution, as in the JAX package: the chunk step runs as the stages
+``chunk_local``, ``graph_step``, ``global_solve``, ``publish`` and
+``plan_fuse``, and every ``gc_every_chunks`` chunks ``gc``, each of which
+the JAX package compiles into one XLA program that donates the state's
+buffers and is dispatched once per chunk. Here each stage of every chunk,
+chunk 0 included, runs through a ``utils/graphs.py`` program: on a card it
+runs eagerly and is captured as a CUDA graph at its first call, and is
+replayed at every later one. Chunk 0's graph step is a program of its own,
+``graph_step_first`` (the JAX package compiles its ``is_first`` graph step
+separately); chunk 0's ``chunk_local``, ``publish`` and ``plan_fuse`` are
+the programs every later chunk replays. That requires what jit's donation
+gives the JAX step, and the port keeps it on the CPU as well: every state
+tensor keeps its storage (each stage writes its results into the state in
+place, ``copy_into`` where a function builds new arrays), the chunk's
+frames are copied into static wire buffers, the chunk index and the frame
+ids come from device tensors (:class:`StepInputs`) that the step advances
+itself, and both graph steps hand their results to ``plan_fuse`` in the
+same buffers (:class:`StepCarry`), so each program's operations are the
+same at every chunk. Streaming, revalidation, ``finalize()`` and the
+upload's unpack stay eager: host decisions, or work off the step. The
+graphs, the state and the compute stream form one executable, kept by
+(configuration, device, camera, mesh) in a process-wide cache: a new
+pipeline takes an idle one and resets its state in place, as a new JAX
+pipeline reuses jit's programs. ``utils/graphs.disable_graphs()`` runs the
+step eagerly on a card.
 
 Three places read device state on the host by design, as in the JAX
 package: the out-of-core streaming check (every ``streaming_check_every``
@@ -59,10 +64,12 @@ the wire (``framewire.bilateral_wire``) instead of in the chunk step; an
 integration resolution below the input resolution decimates depth and colour
 at the wire for the ring, the FrameStore and K1; a ``mesh``
 (``parallel.mesh.make_mesh``) shards the global BA over its shards
-(``global_graph.global_solve_sharded``, eager). :class:`FusionState` and
-the chunk step's functions (:func:`_graph_step`, :func:`_publish_all`,
-:func:`_plan_and_fuse`) are also each shard's state and steps in the
-multi-sequence pipeline (``parallel/spmd_pipeline.py``, eager).
+(``global_graph.global_solve_sharded``): through the ``global_solve``
+program when every shard lives on the pipeline's device (one card), eagerly
+when the mesh spans several devices (decided at construction, reported in
+``graph_stats``). :class:`FusionState`, :class:`StepState` and the chunk
+step's stage functions are also each shard's state, executable and
+programs in the multi-sequence pipeline (``parallel/spmd_pipeline.py``).
 """
 
 from __future__ import annotations
@@ -165,13 +172,29 @@ def advance_step(step: StepInputs, submap_size: int) -> None:
     torch.add(step.chunk * submap_size, 1, out=step.exclude_from)
 
 
+@dataclass
+class StepCarry:
+    """The graph step's results that ``plan_fuse`` reads, in fixed buffers:
+    chunk 0's graph step (a program of its own) and every later one write
+    the same tensors, so one ``plan_fuse`` program serves every chunk."""
+
+    integrate_mask: torch.Tensor  # bool 0-d: integrate the chunk's new frames
+    stats_in: torch.Tensor  # [9] f32: the graph step's part of the runlog row
+
+
+def make_carry(device) -> StepCarry:
+    return StepCarry(torch.zeros((), dtype=torch.bool, device=device), torch.zeros(9, device=device))
+
+
 def _graph_step(st: "FusionState", step: StepInputs, res: chunk_mod.ChunkResult, cache_cam: CameraModel, cfg,
-                is_first: bool):
-    """All keyframe-graph control flow of one chunk: keyframe pose init
-    (chained from the previous keyframe), ``add_keyframe``, global matching,
+                is_first: bool, carry: StepCarry) -> None:
+    """Stages ``graph_step_first`` (chunk 0) and ``graph_step``: all
+    keyframe-graph control flow of one chunk: keyframe pose init (chained
+    from the previous keyframe), ``add_keyframe``, global matching,
     relocalization, and the tracking-lost state machine. Updates the graph,
     the control state and the per-chunk stores of ``st`` in place (the JAX
-    step donates them). Returns (integrate_mask, stats_in)."""
+    step donates them), and writes (integrate_mask, stats_in) into
+    ``carry``."""
     chunk_valid = res.chunk_valid
     k = step.chunk  # one keyframe per chunk
     graph, ctrl = st.graph, st.ctrl
@@ -217,7 +240,7 @@ def _graph_step(st: "FusionState", step: StepInputs, res: chunk_mod.ChunkResult,
             torch.sum(res.pair_valid).to(f32), graph.corr_cursor.to(f32), lost_chunks.to(f32),
         ]
     )
-    return ok, stats_in
+    copy_into(carry, StepCarry(ok, stats_in))
 
 
 def _publish_all(st: "FusionState", submap_size: int, chunk_frames: int) -> None:
@@ -389,7 +412,7 @@ def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: 
 
 def _chunk_local(wire, cam: CameraModel, cache_cam: CameraModel, bc, ac: AppConfig) -> chunk_mod.ChunkResult:
     """Stage ``chunk_local``: the local pipeline on the chunk's wire (depth,
-    luma)."""
+    then luma, or RGB on the multi-sequence driver's v1 wire)."""
     return chunk_mod.process_chunk(
         wire[0], wire[1], cam, cache_cam, bc, sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
         # with integrate_filtered_depth the wire is already filtered
@@ -397,25 +420,86 @@ def _chunk_local(wire, cam: CameraModel, cache_cam: CameraModel, bc, ac: AppConf
     )
 
 
-def _plan_fuse_step(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: StepInputs, stats_in, wire,
-                    integrate_mask, budget: int, submap_size: int) -> None:
-    """Stage ``plan_fuse``: :func:`_plan_and_fuse` on the wire at the
-    integration resolution, then the step inputs move to the next chunk."""
-    _plan_and_fuse(st, cfg, int_cam, step, stats_in, wire[3], wire[4], integrate_mask, budget)
+def _plan_fuse_step(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: StepInputs, carry: StepCarry,
+                    d16: torch.Tensor, c8: torch.Tensor, budget: int, submap_size: int) -> None:
+    """Stage ``plan_fuse``: :func:`_plan_and_fuse` on the chunk's depth and
+    colour at the integration resolution, then the step inputs move to the
+    next chunk."""
+    _plan_and_fuse(st, cfg, int_cam, step, carry.stats_in, d16, c8, carry.integrate_mask, budget)
     advance_step(step, submap_size)
+
+
+def _gc(st: FusionState) -> None:
+    """Stage ``gc``: drop the blocks whose every voxel weight is zero (the
+    index re-sorts in place) and count them in ``gc_freed_total``."""
+    table, freed = blocks.garbage_collect(st.table)
+    copy_into(st.table, table)
+    st.gc_freed_total.add_(freed.to(torch.float32))
 
 
 @dataclass
 class StepState:
     """What the captured chunk step addresses, kept with its graphs in the
-    executable cache: the fusion state, the step inputs, and the static
-    device copies of a chunk's wire (depth, luma, colour, then depth and
-    colour at the integration resolution, the first and third again when
-    the resolutions are equal)."""
+    executable cache: the fusion state, the step inputs, the static device
+    copies of a chunk's wire (the serial pipeline's: depth, luma, colour,
+    then depth and colour at the integration resolution, the first and
+    third again when the resolutions are equal; a multi-sequence shard's:
+    depth and RGB), and the graph step's carry."""
 
     fusion: FusionState
     step: StepInputs
     wire: tuple[torch.Tensor, ...]
+    carry: StepCarry
+
+
+def stream_ctx(device: torch.device, stream):
+    """``device`` and ``stream`` for the calling thread (in PyTorch both
+    belong to each thread); nothing on the CPU."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
+def checkout_step(cache: graphs.ExecutableCache, owner, key, device: torch.device, fresh, wire, submap_size: int,
+                  chunk_frames: int) -> graphs.Executable:
+    """An idle executable of ``key`` from ``cache``, its fusion state reset in
+    place to ``fresh()`` and its step inputs to chunk 0's, or a new one
+    whose :class:`StepState` holds ``fresh()``, chunk 0's step inputs and
+    the static wire buffers ``wire()`` makes. It returns to the cache when
+    ``owner`` is garbage-collected (the JAX step's buffers are donated; a
+    dropped owner's state is reused). The state lives on the executable's
+    stream."""
+
+    def build():
+        exe = graphs.Executable(device, None)
+        with stream_ctx(device, exe.stream):
+            exe.state = StepState(fresh(), step_inputs(0, submap_size, chunk_frames, device), wire(),
+                                  make_carry(device))
+        return exe
+
+    exe, reused = cache.checkout(owner, key, build)
+    if reused:
+        with stream_ctx(device, exe.stream):
+            copy_into(exe.state.fusion, fresh())
+            copy_into(exe.state.step, step_inputs(0, submap_size, chunk_frames, device))
+    return exe
+
+
+def solve_route(mesh, device: torch.device) -> str | None:
+    """How a pipeline on ``device`` with ``mesh`` runs its global solve
+    outside a graph, or None when the ``global_solve`` program may capture
+    it: a mesh whose shards span several devices (or another device than
+    the pipeline's) keeps the eager sharded solve; its cross-device copies
+    are not captured."""
+    devices = set(mesh.devices) if mesh is not None else {device}
+    if devices == {device}:
+        return None
+    if len(devices) > 1:
+        return f"eager: the mesh spans {len(devices)} devices"
+    return f"eager: the mesh is on {mesh.devices[0]}, the pipeline on {device}"
 
 
 # The executables of the serial pipeline's chunk step (graphs and the state
@@ -641,13 +725,19 @@ class BundleFusion:
         # a card unless built under graphs.disable_graphs()), its compute
         # stream, and the state they address: the device state (the ring
         # holds half-res colour, the v2 wire; finalize's service rounds log
-        # in the runlog's scratch row), the step inputs and the static wire
-        self._graphed = dev.type == "cuda" and graphs.graphs_enabled()
+        # in the runlog's scratch row), the step inputs, the static wire and
+        # the graph step's carry. A mesh over several devices keeps its
+        # sharded solve out of the graphs (decided here, once).
+        self._route_all = graphs.route_for(dev)
+        self._graphed = self._route_all == "graph"
+        route = solve_route(mesh, dev)
+        self._routes = {"global_solve": route} if route else {}
         self._exe = self._checkout_executable()
-        self._programs_at_start = {n: (p.replays, p.graph is not None) for n, p in self._exe.programs.items()}
+        self._programs_at_start = self._exe.counters()
         self.state: FusionState = self._exe.state.fusion
         self._step: StepInputs = self._exe.state.step
         self._wire: tuple[torch.Tensor, ...] = self._exe.state.wire
+        self._carry: StepCarry = self._exe.state.carry
         self._step_chunk = 0  # the chunk whose inputs self._step holds
         self.max_chunks = bc.max_frames // self.S
         # frame storage for de/re-integration: the host FrameStore holds every
@@ -697,61 +787,38 @@ class BundleFusion:
         self.runlog = RunLog(log_path)
 
     def _checkout_executable(self) -> graphs.Executable:
-        """An idle executable of this configuration, device and camera from
-        the process-wide cache, its state reset in place to what
-        :func:`make_fusion_state` builds, or a new one. It returns to the
-        cache when this pipeline is garbage-collected (the JAX step's
-        buffers are donated; a dropped pipeline's state is reused)."""
+        """An idle executable of this configuration, device, camera and mesh
+        from the process-wide cache (``checkout_step``), or a new one."""
         dev = self.device
         cf, (h, w, hi, wi, _) = self.chunk_frames, self._wire_dims
 
         def fresh():
             return make_fusion_state(self.config, self.int_cam, (hi // 2, wi // 2), self.anchor, dev)
 
-        def build():
-            exe = graphs.Executable(dev, None)
-            with self._stream_ctx(exe.stream):  # the state lives on the compute stream
-                wire = [torch.zeros((cf, h, w), dtype=torch.int16, device=dev),
-                        torch.zeros((cf, h, w), dtype=torch.uint8, device=dev),
-                        torch.zeros((cf, h // 2, w // 2, 3), dtype=torch.uint8, device=dev)]
-                if (hi, wi) == (h, w):
-                    wire += [wire[0], wire[2]]
-                else:
-                    wire += [torch.zeros((cf, hi, wi), dtype=torch.int16, device=dev),
-                             torch.zeros((cf, hi // 2, wi // 2, 3), dtype=torch.uint8, device=dev)]
-                exe.state = StepState(fresh(), step_inputs(0, self.S, cf, dev), tuple(wire))
-            return exe
+        def wire():
+            out = [torch.zeros((cf, h, w), dtype=torch.int16, device=dev),
+                   torch.zeros((cf, h, w), dtype=torch.uint8, device=dev),
+                   torch.zeros((cf, h // 2, w // 2, 3), dtype=torch.uint8, device=dev)]
+            if (hi, wi) == (h, w):
+                return (*out, out[0], out[2])
+            return (*out, torch.zeros((cf, hi, wi), dtype=torch.int16, device=dev),
+                    torch.zeros((cf, hi // 2, wi // 2, 3), dtype=torch.uint8, device=dev))
 
-        key = (self.config.to_json(), str(dev), tuple(self.cam))
-        exe, reused = _EXECUTABLES.checkout(self, key, build)
-        if reused:
-            with self._stream_ctx(exe.stream):
-                copy_into(exe.state.fusion, fresh())
-                copy_into(exe.state.step, step_inputs(0, self.S, cf, dev))
-        return exe
-
-    def _stream_ctx(self, stream):
-        """The pipeline's device and ``stream`` for the calling thread (in
-        PyTorch both belong to each thread); nothing on the CPU."""
-        if stream is None:
-            return contextlib.nullcontext()
-        stack = contextlib.ExitStack()
-        stack.enter_context(torch.cuda.device(self.device))
-        stack.enter_context(torch.cuda.stream(stream))
-        return stack
+        # the mesh is part of the key: its shard count changes the sharded solve's operations
+        mesh = None if self.mesh is None else tuple(map(str, self.mesh.devices))
+        key = (self.config.to_json(), str(dev), tuple(self.cam), mesh)
+        return checkout_step(_EXECUTABLES, self, key, dev, fresh, wire, self.S, cf)
 
     @property
     def graph_stats(self) -> dict[str, dict]:
         """Per stage of the chunk step (after this pipeline ran it once):
         ``graph`` (captured), ``replays`` by this pipeline, ``captured``
-        (by this pipeline) and ``capture_s``."""
-        out = {}
-        for name, p in self._exe.programs.items():
-            replays0, had_graph = self._programs_at_start.get(name, (0, False))
-            here = p.graph is not None and not had_graph
-            out[name] = {"graph": p.graph is not None, "replays": p.replays - replays0, "captured": here,
-                         "capture_s": p.capture_s if here else 0.0}
-        return out
+        (by this pipeline), ``capture_s`` and ``route`` ("graph", or why the
+        stage runs eagerly)."""
+        return self._exe.stats(self._programs_at_start, self._route)
+
+    def _route(self, name: str) -> str:
+        return self._routes.get(name, self._route_all)
 
     # ------------------------------------------------------------------
     # frame input
@@ -794,7 +861,7 @@ class BundleFusion:
     def _device_ctx(self, stream=None):
         """The pipeline's device and ``stream`` (default: the compute
         stream) for the calling thread."""
-        return self._stream_ctx(self._stream if stream is None else stream)
+        return stream_ctx(self.device, self._stream if stream is None else stream)
 
     def _count_wait(self, site: str) -> None:
         with self._waits_lock:
@@ -900,18 +967,19 @@ class BundleFusion:
 
     def _process_chunk(self, d_wire: torch.Tensor, y_wire: torch.Tensor, c_wire: torch.Tensor,
                        d_wire_int: torch.Tensor, c_wire_int: torch.Tensor) -> None:
-        """One chunk's step. Its five stages run as the JAX package's five
-        programs do: chunk 0 eagerly (its graph step is the ``is_first``
-        program), every later chunk through the executable's programs
-        (:meth:`_run`). The stages read the chunk only from the static wire
-        and the step inputs, and update the state in place."""
+        """One chunk's step. Its stages run as the JAX package's programs
+        do, each through the executable's program of its name
+        (:meth:`_run`); chunk 0's graph step is the ``graph_step_first``
+        program (the JAX package's ``is_first`` program). The stages read
+        the chunk only from the static wire and the step inputs, and update
+        the state in place."""
         bc = self.config.bundling
         ac = self.config.app
         c = self.chunk_count
         if c >= min(self.max_chunks, bc.max_num_images):
             raise ValueError(f"chunk {c} exceeds the keyframe/chunk capacity")
         first_frame = c * self.S
-        st, step, wire = self.state, self._step, self._wire
+        st, step, wire, carry = self.state, self._step, self._wire, self._carry
         t_chunk = time.perf_counter()
         # backpressure: the host dispatches at most ~2 chunks ahead of the device
         if len(self._bp_events) >= 2 and not self.profile:
@@ -926,39 +994,38 @@ class BundleFusion:
                 copied.add(id(dst))
         if self._step_chunk != c:
             copy_into(step, step_inputs(c, self.S, self.chunk_frames, self.device))
-        steady = c > 0
+        first = c == 0
 
         with self.timing.stage("chunk_local", block=self.profile):
-            res = self._run(steady, "chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac)
+            res = self._run("chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac)
         self.gn_iters_executed += bc.local_gn_iters * 2  # 2 solve+prune rounds
 
         with self.timing.stage("graph_step", block=self.profile):
-            integrate_mask, stats_in = self._run(steady, "graph_step", _graph_step, st, step, res, self.cache_cam,
-                                                 bc, not steady)
+            self._run("graph_step_first" if first else "graph_step", _graph_step, st, step, res, self.cache_cam, bc,
+                      first, carry)
         self.num_keyframes = c + 1  # one keyframe per chunk
 
         if self.num_keyframes > 1:
             with self.timing.stage("global_solve", block=self.profile):
                 if self.mesh is None:
-                    self._run(steady, "global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
-                else:  # the sharded solve stays eager
-                    self._global_solve()
+                    self._run("global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
+                else:
+                    self._run("global_solve", global_graph.global_solve_sharded, st.graph, self.mesh,
+                              self.cache_cam, bc)
             self.gn_iters_executed += bc.global_gn_iters
 
         with self.timing.stage("publish", block=self.profile):
-            self._run(steady, "publish", _publish_all, st, self.S, self.chunk_frames)
+            self._run("publish", _publish_all, st, self.S, self.chunk_frames)
 
         self.num_frames = max(self.num_frames, first_frame + self.chunk_frames)
         with self.timing.stage("plan_fuse", block=self.profile):
-            self._run(steady, "plan_fuse", _plan_fuse_step, st, ac, self.int_cam, step, stats_in, wire,
-                      integrate_mask, ac.max_reintegrations_per_frame * self.S, self.S)
+            self._run("plan_fuse", _plan_fuse_step, st, ac, self.int_cam, step, carry, wire[3], wire[4],
+                      ac.max_reintegrations_per_frame * self.S, self.S)
         self._step_chunk = c + 1
 
         if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
             with self.timing.stage("gc", block=self.profile):
-                table, freed = blocks.garbage_collect(st.table)
-                copy_into(st.table, table)
-                st.gc_freed_total.add_(freed.to(torch.float32))
+                self._run("gc", _gc, st)
 
         # out-of-core streaming: evict far blocks, restore near ones
         if ac.streaming_enabled and (
@@ -981,14 +1048,13 @@ class BundleFusion:
         self.timing.record("whole_chunk_step", time.perf_counter() - t_chunk)
         self.chunk_count += 1
 
-    def _run(self, steady: bool, name: str, fn, *args):
-        """Stage ``name`` of the chunk step: ``fn(*args)`` eagerly on chunk
-        0, else through the executable's program of that name, which on a
-        card warms up, captures and then replays (``graphs.Program``) unless
-        this pipeline was built under ``graphs.disable_graphs()``."""
-        if not steady:
-            return fn(*args)
-        return self._exe.program(name, fn)(*args, graphed=self._graphed)
+    def _run(self, name: str, fn, *args):
+        """Stage ``name`` of the chunk step, through the executable's program
+        of that name, which on a card captures at its first call and then
+        replays (``graphs.Program``) unless this pipeline was built under
+        ``graphs.disable_graphs()`` or routes the stage eagerly
+        (``graph_stats``' ``route``)."""
+        return self._exe.program(name, fn)(*args, graphed=self._graphed and name not in self._routes)
 
     def _streaming_step(self, k_idx: int, c: int) -> None:
         """Stream near host blocks in, then (past the occupancy watermark)

@@ -6,15 +6,26 @@ program and donates the state's buffers to it; one program serves every
 chunk, and jit's process-wide cache serves every pipeline of the same
 configuration. Here:
 
-  * capture once  ≙ compile: a :class:`Program` runs its function eagerly
-    once (the warm-up: lazy initialisation and allocator growth happen
-    outside any capture), then captures it on the caller's current stream
-    into a ``torch.cuda.CUDAGraph`` whose memory comes from a pool shared
-    by every program of one :class:`Executable`;
+  * capture once  ≙ compile: a :class:`Program`'s first call on a card runs
+    its function eagerly on the real inputs (the warm-up: lazy
+    initialisation, library handles and kernel loading happen outside any
+    capture, and the call's work is this run's), then captures the function
+    on the caller's current stream into a ``torch.cuda.CUDAGraph`` (a
+    capture runs nothing) and copies the eager run's results into the
+    graph's output buffers. So a program captures at its first call, which
+    a stage that runs once per pipeline needs (chunk 0's graph step): the
+    first pipeline of a configuration captures it, every later one replays
+    it. The graphs of one :class:`Executable` draw on one memory pool;
   * replay ≙ dispatch: every later call replays the graph, one launch;
   * in-place update of persistent state ≙ donation: a program's inputs are
     the same tensors at every call (checked: a replay against inputs at
     other addresses raises), and it writes its results into them.
+
+The programs of an executable share its pool: a graph's outputs may lie
+where a program captured before it keeps its temporaries. So read a
+program's outputs before another program of the executable runs (the chunk
+step's only such output, ``chunk_local``'s, is read by the graph step right
+after it, and ``chunk_local`` is always captured first).
 
 An :class:`ExecutableCache` keeps executables (their programs and the state
 they address) by key, as jit's cache keeps compiled programs by
@@ -24,13 +35,14 @@ is garbage-collected. Two live owners never share an executable.
 On the CPU a program calls its function directly (its owner passes
 ``graphed=False``): the caller asked for the CPU, and there is no graph to
 capture. A pipeline built under :func:`disable_graphs` (the counterpart of
-``jax.disable_jit()``) runs its programs eagerly on a card too. On a card, a capture or a replay that fails raises; nothing falls back
-to the eager step.
+``jax.disable_jit()``) runs its programs eagerly on a card too. On a card, a
+capture or a replay that fails raises; nothing falls back to the eager step.
 
 Launch counts: a kernel wrapper registered with ``kernels.counted`` counts
-its launches in ``.launches``. A capture records the launches its function
-made (and takes them back: nothing ran), and every replay adds them again,
-so the counts stay one per kernel launch on the device.
+its launches in ``.launches``. The warm-up's launches count (they ran); a
+capture records the launches its function made and takes them back
+(nothing ran), and every replay adds them again, so the counts stay one per
+kernel launch on the device.
 """
 
 from __future__ import annotations
@@ -69,6 +81,15 @@ def graphs_enabled() -> bool:
     return _DISABLED == 0
 
 
+def route_for(device: torch.device) -> str:
+    """How an owner built now on ``device`` runs its programs: ``"graph"``
+    (captured and replayed), ``"eager: cpu"`` or ``"eager:
+    disable_graphs()"``."""
+    if device.type != "cuda":
+        return "eager: cpu"
+    return "graph" if graphs_enabled() else "eager: disable_graphs()"
+
+
 def _leaves(obj, out: list) -> list:
     """The tensors and other values of a nest of dataclasses, tuples and
     lists, in order."""
@@ -99,16 +120,16 @@ def _launch_counts() -> list[int]:
 
 
 class Program:
-    """One stage of the step: ``fn(*args)`` eager at its first call on a
-    card, captured at its second, replayed from then on. ``graphed=False``
-    (what an owner on the CPU or built under :func:`disable_graphs`
-    passes) calls ``fn`` every time."""
+    """One stage of the step: ``fn(*args)`` run eagerly and captured at its
+    first call on a card, replayed from then on. ``graphed=False`` (what an
+    owner on the CPU or built under :func:`disable_graphs` passes) calls
+    ``fn`` every time."""
 
     def __init__(self, name: str, fn, pool):
         self.name, self.fn, self.pool = name, fn, pool
         self.graph: torch.cuda.CUDAGraph | None = None
         self.outputs = None
-        self.warm = False
+        self.warm = False  # fn has run eagerly on a card, as the warm-up of a capture
         self.replays = 0
         self.capture_s = 0.0
         self._signature: tuple | None = None
@@ -118,11 +139,14 @@ class Program:
         if not graphed:
             return self.fn(*args)
         if self.graph is None:
-            if not self.warm:
-                self.warm = True
-                return self.fn(*args)
+            eager = self.fn(*args)
+            self.warm = True
             self._capture(args)
-        elif _signature(args) != self._signature:
+            for dst, src in zip(_leaves(self.outputs, []), _leaves(eager, [])):
+                if isinstance(dst, torch.Tensor) and dst is not src:
+                    dst.copy_(src)
+            return self.outputs
+        if _signature(args) != self._signature:
             raise RuntimeError(f"program {self.name}: replayed on other inputs than it was captured with "
                                "(a state tensor was rebound, not updated in place)")
         self.graph.replay()
@@ -154,8 +178,8 @@ class Program:
 class Executable:
     """The programs of one step and what they address: ``state`` (whatever
     the owner keeps there), one stream to run and capture them on and one
-    memory pool shared by all of them (they run in one order, one at a
-    time, as they were captured)."""
+    memory pool shared by all of them (they run one at a time, in stream
+    order)."""
 
     def __init__(self, device: torch.device, state):
         self.device = device
@@ -169,6 +193,24 @@ class Executable:
         if name not in self.programs:
             self.programs[name] = Program(name, fn, self._pool)
         return self.programs[name]
+
+    def counters(self) -> dict[str, tuple[int, bool]]:
+        """Per program: (replays, whether it has a graph); an owner takes
+        them at checkout, and :meth:`stats` counts from there."""
+        return {n: (p.replays, p.graph is not None) for n, p in self.programs.items()}
+
+    def stats(self, start: dict[str, tuple[int, bool]], route) -> dict[str, dict]:
+        """Per program since ``start`` (:meth:`counters` at checkout):
+        ``graph`` (it has one), ``replays``, ``captured`` (since start),
+        ``capture_s`` (of that capture) and ``route`` (``route(name)``: how
+        the owner runs it)."""
+        out = {}
+        for name, p in self.programs.items():
+            replays0, had_graph = start.get(name, (0, False))
+            here = p.graph is not None and not had_graph
+            out[name] = {"graph": p.graph is not None, "replays": p.replays - replays0, "captured": here,
+                         "capture_s": p.capture_s if here else 0.0, "route": route(name)}
+        return out
 
 
 class ExecutableCache:

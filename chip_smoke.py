@@ -35,6 +35,8 @@ exits non-zero; there is no CPU fallback):
                 future, and that waiting on a CUDA event is not counted);
                 the ingest's waits that blocked (backpressure, staging,
                 runahead) are reported by site from the pipeline's own count.
+                The pass replays phase 4's graphs, chunk 0's included: every
+                program at every chunk it runs, no capture.
   6. stream   — the flagship configuration with the default streaming
                 schedule (a check every 16 chunks until streaming engages)
                 on a 241-frame corridor walk rendered on the card, with the
@@ -46,6 +48,10 @@ exits non-zero; there is no CPU fallback):
                 triangles; it must span the walked corridor). Then two more
                 passes that digest the whole state after every stage of
                 every chunk: the digests and all three meshes must be equal.
+                The ``gc`` program (chunks 7, 15 and 23) is captured at its
+                first call and replayed at the others, and replayed at all
+                three by the first digested pass (the second, on a fresh
+                executable, captures at chunk 7).
   7. reloc    — the out-and-back orbit with the depth blacked out over four
                 frames, at 640x480 on the flagship configuration: a
                 relocalization, finalize()'s revalidation, valid frames after
@@ -57,14 +63,25 @@ exits non-zero; there is no CPU fallback):
                 checkpoint, ATE <= 0.5 cm on both; render_preview at 320x240.
   9. multiseq — the multi-sequence driver (``parallel/spmd_pipeline.py``) on
                 two flagship sequences of 66 frames (seeds 0 and 1) over a
-                2-shard mesh (both shards on cuda:0 with one card): fps over
-                both, every chunk valid, ATE <= 0.5 cm each, one K1 and one
-                K2 launch per shard and chunk, 0 host syncs in the chunk
-                rounds, peak memory; the app's --multiseq 2 route; 2 shards
-                at 128x96 on the CPU against the card.
+                2-shard mesh (both shards on cuda:0 with one card), each
+                shard's stages captured as CUDA graphs in an executable of
+                its own: a first run on fresh executables (fps over both,
+                capture seconds, every chunk valid, ATE <= 0.5 cm each, one
+                K1 and one K2 launch per shard and chunk, 0 host syncs in
+                the chunk rounds, peak memory with two shard executables),
+                then timed runs interleaved graphed / eager / eager /
+                graphed (``graphs.disable_graphs()``): fps each way, the
+                replays per shard and stage, each shard's state digests
+                bit-equal in every run; a device-only trace of a graphed and
+                an eager run (busy share, host launch calls per frame); the
+                app's --multiseq 2 route; 2 shards at 128x96 on the CPU
+                against the card.
  10. sharded  — phase 4's flagship pass with the global BA sharded over a
-                2-shard mesh: fps, ATE, validity and the largest pose gap
-                against phase 4's pass, global_solve time against phase 4's.
+                2-shard mesh on the card, through the ``global_solve``
+                program: a pass that captures, one that replays and an eager
+                pass, bit-equal; fps, ATE, validity and the largest pose gap
+                against phase 4's pass, global_solve time per chunk against
+                phase 4's, 0 host syncs.
  11. configs  — the flagship pass with integrate_filtered_depth and with a
                 320x240 integration resolution (fps, ATE, blocks, launches);
                 the host time of the wire bilateral; the native .sens codecs
@@ -135,16 +152,18 @@ exits non-zero; there is no CPU fallback):
                 pass under the sync counter, and a device-only trace each
                 way (busy share, device kernels and host launch calls per
                 frame). Every pass bit-equal in its state digests and poses;
-                a graphed pass replays each stage once per steady chunk; one
-                K1 and one K2 launch per chunk counted through replays; 0
-                readbacks; ATE <= 0.5 cm, every chunk valid.
+                the first pass captures each program at its first call; a
+                later graphed pass replays every program at every chunk it
+                runs (``graph_step_first`` once, ``chunk_local`` at every
+                chunk); one K1 and one K2 launch per chunk counted through
+                replays; 0 readbacks; ATE <= 0.5 cm, every chunk valid.
 
-Phases 4-14 run the chunk step graphed (each stage captured at a pipeline's
-second steady chunk when its executable is fresh, replayed after); phase 5's
-window replays the executable phase 4 captured, and says so. Phases 6-15
-set the kernels' launch counts to 0 before their run and read them after
-it (a replay adds the launches its graph captured): each of their paths
-must launch both kernels. Small outputs
+Phases 4-14 run the chunk step graphed (each program captured at its first
+call when its executable is fresh, chunk 0's stages at chunk 0, and
+replayed after); phase 5's window replays the executable phase 4 captured,
+and says so. Phases 6-15 set the kernels' launch counts to 0 before their
+run and read them after it (a replay adds the launches its graph captured):
+each of their paths must launch both kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
@@ -652,6 +671,7 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
     count sees syncs on the caller's thread and on the ingest's dispatch
     worker, and that "error" mode's exception on that worker comes back
     through its future."""
+    from bundlefusion_tpu_torch import bench
     from bundlefusion_tpu_torch.bundle import pipeline as pipe
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 
@@ -689,11 +709,16 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
         bf.flush()
 
     sites = sync_sites(torch, steady)
-    captured = sorted(k for k, v in bf.graph_stats.items() if v["captured"])
-    phase("syncs", f"the chunk step replayed the graphs phase 4 captured (captured in this window: {captured}); "
-          f"replays {({k: v['replays'] for k, v in bf.graph_stats.items()})}")
+    stats = bf.graph_stats
+    captured = sorted(k for k, v in stats.items() if v["captured"])
+    replays = {k: v["replays"] for k, v in stats.items()}
+    want = {k: n for k, n in bench.expected_replays(bf.chunk_count, cfg).items() if n}
+    phase("syncs", f"the chunk step replayed the graphs phase 4 captured, chunk 0's included (captured in this "
+          f"window: {captured}); replays {replays}")
     if captured:
         raise AssertionError(f"phase 5's window holds a capture ({captured}): the flagship executable was not reused")
+    if replays != want:
+        raise AssertionError(f"phase 5's pass did not replay every stage of every chunk: {replays} against {want}")
     phase("syncs", f"{len(sites)} readbacks in {FLAGSHIP_FRAMES} steady-state pushes (controls: 1 of 1 seen on the "
           f"caller's thread, 1 of 1 on the dispatch worker, 0 for a CUDA event wait; error mode on the worker raised "
           f"through its future: {raised!r}); by site {by_site(sites)}; ingest waits that blocked (CUDA events and worker futures, "
@@ -740,10 +765,10 @@ def tensor_digest(torch, t) -> int:
     return int((v * w).sum())
 
 
-def state_digests(torch, bf, extra=None) -> dict[str, object]:
-    """Digests of every tensor of a pipeline's device state (graph, control,
-    trajectory, block table, update records, per-chunk stores, runlog) and
-    of its host block store; ``extra`` adds a stage's own outputs."""
+def fusion_digests(torch, objs: dict) -> dict[str, int]:
+    """Digests of every tensor of each named nest of dataclasses (a
+    ``FusionState``: graph, control, trajectory, block table, update
+    records, per-chunk stores, runlog)."""
     out = {}
 
     def walk(prefix, obj):
@@ -753,9 +778,15 @@ def state_digests(torch, bf, extra=None) -> dict[str, object]:
         elif isinstance(obj, torch.Tensor):
             out[prefix] = tensor_digest(torch, obj)
 
-    walk("state", bf.state)
-    for name, obj in (extra or {}).items():
+    for name, obj in objs.items():
         walk(name, obj)
+    return out
+
+
+def state_digests(torch, bf, extra=None) -> dict[str, object]:
+    """Digests of every tensor of a pipeline's device state and of its host
+    block store; ``extra`` adds a stage's own outputs."""
+    out = fusion_digests(torch, {"state": bf.state, **(extra or {})})
     st = bf.block_store
     h = hashlib.blake2b()
     for a in (st._keys, st._sdf, st._wgt, st._col, np.asarray(st._free, np.int64)):
@@ -854,9 +885,11 @@ def run_stream(torch, T, dev, kernels_out) -> None:
     dt = time.perf_counter() - t0
     launches = read_launches()
     record_launches(kernels_out, "stream", launches)
+    gc_stats = bf.graph_stats.get("gc")
     out = bf.outputs()
     recs = [r for r in bf.runlog.records if "stream_out" in r]
     chunks = [r for r in bf.runlog.records if "chunk_valid" in r]
+    gc_calls = len(chunks) // ac.gc_every_chunks
     st = bf.timing.summary().get("streaming", {"count": 0, "total_s": 0.0, "max_ms": 0.0})
     n_in, n_out = sum(r["stream_in"] for r in recs), sum(r["stream_out"] for r in recs)
     device_blocks, host_blocks = int(bf.state.table.num_active()), len(bf.block_store)
@@ -879,6 +912,11 @@ def run_stream(torch, T, dev, kernels_out) -> None:
     phase("stream", f"{len(sites)} readbacks at chunks {sync_chunks}; by site {per_site}; ingest waits that "
           f"blocked {dict(bf.ingest_waits)}")
     phase("stream", "runlog streaming steps " + json.dumps(recs))
+    phase("stream", f"gc program at chunks {[c - 1 for c in range(ac.gc_every_chunks, len(chunks) + 1, ac.gc_every_chunks)]}: "
+          f"{gc_stats}; gc_freed_total {chunks[-1]['gc_freed_total']}")
+    if not (gc_stats and gc_stats["captured"] and gc_stats["route"] == "graph" and gc_stats["replays"] == gc_calls - 1):
+        raise AssertionError(f"the corridor's gc program was not captured at its first call and replayed after: "
+                             f"{gc_stats} over {gc_calls} calls")
     first_check = ac.streaming_check_every - 1
     if not recs or recs[0]["chunk"] != first_check:
         raise AssertionError(f"streaming did not engage at the first check (chunk {first_check}): {recs[:2]}")
@@ -913,11 +951,17 @@ def run_stream(torch, T, dev, kernels_out) -> None:
     diff = first_difference(ra, rb)
     meshes = [bx.extract_mesh() for bx in (ba, bb)]
     same_mesh = [all(np.array_equal(x, y) for x, y in zip(m, (verts, cols, faces))) for m in meshes]
+    # the first digested pass reuses the timed pass's executable; the second
+    # runs while the first is alive, so it takes a fresh one and captures
+    gc_replays = [(bx.graph_stats["gc"]["replays"], bx.graph_stats["gc"]["captured"]) for bx in (ba, bb)]
     phase("stream", f"determinism: two digested passes ({time.perf_counter() - t0:.1f} s), {len(ra)} stages "
           f"compared; first difference (chunk, stage, fields): {diff}; meshes {[len(m[2]) for m in meshes]} "
-          f"triangles, equal to the timed pass's {same_mesh}")
+          f"triangles, equal to the timed pass's {same_mesh}; gc (replays, captured) {gc_replays}")
     if diff is not None or not all(same_mesh):
         raise AssertionError(f"the corridor is not deterministic: first difference {diff}, meshes equal {same_mesh}")
+    if gc_replays != [(gc_calls, False), (gc_calls - 1, True)]:
+        raise AssertionError(f"the digested passes did not replay gc at each of its {gc_calls} calls on the reused "
+                             f"executable and at each after the first on a fresh one: {gc_replays}")
 
 
 def out_and_back_sequence(w: int, h: int, dev, num_frames: int = 41, blackout: tuple[int, int] | None = (20, 24)):
@@ -1062,52 +1106,137 @@ def run_app(torch, T, dev, kernels_out) -> None:
         raise AssertionError("; ".join(problems))
 
 
+MULTISEQ_ORDER = ("graphed", "eager", "eager", "graphed")  # phase 9's timed runs, interleaved
+
+
+def sharded_pass(torch, seqs, mesh, cfg, mode: str, keep=None, trace: bool = False) -> dict:
+    """One ``ShardedRun`` over ``seqs``, built graphed (the default) or under
+    ``graphs.disable_graphs()``: its chunk rounds timed (ending in a
+    synchronize) under the sync counter, launches, replays per shard and
+    stage, peak memory (construction and rounds), per-shard state digests,
+    outputs; with ``trace`` the rounds run
+    under ``device_only_trace``; ``keep(run, out)`` reads more before the
+    run is dropped (a live run holds its executables)."""
+    from bundlefusion_tpu_torch.parallel.spmd_pipeline import ShardedRun
+    from bundlefusion_tpu_torch.utils import graphs
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+        run = ShardedRun(seqs, mesh, cfg, anchor_poses=np.stack([s.poses[0] for s in seqs]))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    frames = len(seqs) * (run.n_chunks * cfg.bundling.submap_size + 1)
+    traced = {}
+
+    def rounds():
+        for c in range(run.n_chunks):
+            run.step(c)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    if trace:
+        sites = sync_sites(torch, lambda: traced.update(device_only_trace(torch, rounds, frames, "multiseq")))
+    else:
+        sites = sync_sites(torch, rounds)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = dict(mode=mode, seconds=dt, fps=frames / dt, setup_s=t_setup, launches=read_launches(), syncs=sites,
+               chunks=run.n_chunks, stats=run.graph_stats, trace=traced,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               digests=[fusion_digests(torch, {"shard": sh}) for sh in run.shards])
+    out = run.outputs()
+    rec.update(poses=out.poses, valid=out.valid, runlogs=out.runlogs)
+    if keep is not None:
+        rec.update(keep(run, out))
+    del run, out
+    gc.collect()
+    return rec
+
+
 def run_multiseq(torch, T, dev, kernels_out, ref) -> None:
     """Phase 9: the multi-sequence driver on 2 flagship sequences over a
-    2-shard mesh, then the app's --multiseq route, then 2 shards at 128x96
-    on the CPU against the card."""
-    from bundlefusion_tpu_torch import app
+    2-shard mesh: a first graphed run on fresh shard executables (it
+    captures), then timed runs interleaved graphed / eager / eager /
+    graphed, each shard's state digests equal in all; then a device-only
+    trace of a graphed and an eager run; then the app's --multiseq route,
+    then 2 shards at 128x96 on the CPU against the card."""
+    from bundlefusion_tpu_torch import app, bench
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
     from bundlefusion_tpu_torch.parallel.mesh import make_mesh
-    from bundlefusion_tpu_torch.parallel.spmd_pipeline import ShardedRun, extract_mesh_for, run_sequences_sharded
+    from bundlefusion_tpu_torch.parallel.spmd_pipeline import extract_mesh_for, run_sequences_sharded
+    from bundlefusion_tpu_torch.utils import graphs
 
+    smi = bench.device_line(dev)
     cfg = flagship_config()
     seqs = [generate_sequence(FLAGSHIP_FRAMES, *FULL, seed=s, radius=0.5, device=dev) for s in (0, 1)]
     mesh = make_mesh(2, "cuda")
     phase("multiseq", f"mesh {mesh!r}")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    run = ShardedRun(seqs, mesh, cfg, anchor_poses=np.stack([s.poses[0] for s in seqs]))
-    torch.cuda.synchronize()
-    t_setup = time.perf_counter() - t0
-    reset_launches()
-    t0 = time.perf_counter()
-    sites = sync_sites(torch, lambda: [run.step(c) for c in range(run.n_chunks)])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_launches()
+
+    def mesh0(run, out):
+        verts, _, faces = extract_mesh_for(out, 0, cfg)
+        return dict(triangles=len(faces))
+
+    first = sharded_pass(torch, seqs, mesh, cfg, "graphed", keep=mesh0)
+    launches, sites, n_chunks = first["launches"], first["syncs"], first["chunks"]
     record_launches(kernels_out, "multiseq", launches)
-    out = run.outputs()
-    n_out = out.poses.shape[1]
-    ates = [ate_rmse(out.poses[i], seqs[i].poses[:n_out], valid=out.valid[i]) for i in range(2)]
-    chunk_valid = out.runlogs[..., 0].astype(bool)
-    phase("multiseq", f"2 flagship sequences x {run.n_chunks} chunks ({n_out} frames each): {2 * n_out / dt:.3f} fps "
-          f"over both ({dt:.3f} s for the chunk rounds; wire conversion and state {t_setup:.2f} s); phase 4's "
-          f"serial pass {ref['fps']:.3f} fps; ATE {ates[0] * 100:.4f} / {ates[1] * 100:.4f} cm; chunks valid "
-          f"{chunk_valid.astype(int).tolist()}; launches {launches}; {len(sites)} host syncs; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    per_shard_chunk = 2 * run.n_chunks
+    n_out = first["poses"].shape[1]
+    ates = [ate_rmse(first["poses"][i], seqs[i].poses[:n_out], valid=first["valid"][i]) for i in range(2)]
+    chunk_valid = first["runlogs"][..., 0].astype(bool)
+    capture = [{k: round(v["capture_s"], 3) for k, v in st.items()} for st in first["stats"]]
+    phase("multiseq", f"2 flagship sequences x {n_chunks} chunks ({n_out} frames each; {smi}), first run on fresh "
+          f"shard executables: {2 * n_out / first['seconds']:.3f} fps over both ({first['seconds']:.3f} s for the "
+          f"chunk rounds, capture included; wire conversion and executables {first['setup_s']:.2f} s); capture s per "
+          f"shard and stage {json.dumps(capture)}; phase 4's serial pass {ref['fps']:.3f} fps; ATE "
+          f"{ates[0] * 100:.4f} / {ates[1] * 100:.4f} cm; chunks valid {chunk_valid.astype(int).tolist()}; launches "
+          f"{launches}; {len(sites)} host syncs; peak memory with two shard executables {first['peak_gib']:.3f} GiB; "
+          f"sequence 0 meshes to {first['triangles']} triangles")
+    per_shard_chunk = 2 * n_chunks
     if launches["tsdf_integrate"] != per_shard_chunk or launches["preprocess"] != per_shard_chunk:
         raise AssertionError(f"expected one K1 and one K2 launch per shard and chunk: {launches}")
-    if not chunk_valid.all() or not out.valid.all() or max(ates) > ATE_BAR:
+    if not chunk_valid.all() or not first["valid"].all() or max(ates) > ATE_BAR:
         raise AssertionError(f"multiseq: chunks valid {chunk_valid.tolist()}, ATE {ates}")
     if sites:
         raise AssertionError(f"host syncs in the sharded driver's steady state: {sorted(set(sites))}")
-    verts, _, faces = extract_mesh_for(out, 0, cfg)
-    phase("multiseq", f"sequence 0 meshes to {len(faces)} triangles")
-    del run, out, verts, faces
+    if any(not v["captured"] or v["route"] != "graph" for st in first["stats"] for v in st.values()):
+        raise AssertionError(f"the first run did not capture every stage of every shard: {first['stats']}")
+
+    want = {k: n for k, n in bench.expected_replays(n_chunks, cfg).items() if n}
+    timed = [sharded_pass(torch, seqs, mesh, cfg, mode) for mode in MULTISEQ_ORDER]
+    for p in timed:
+        diff = [sorted(k for k in a if a[k] != b.get(k)) for a, b in zip(first["digests"], p["digests"])]
+        if any(diff) or not np.array_equal(first["poses"], p["poses"]) or not np.array_equal(first["valid"], p["valid"]):
+            raise AssertionError(f"a {p['mode']} run differs from the first graphed run: {[d[:8] for d in diff]}")
+        if p["syncs"] or p["launches"] != launches:
+            raise AssertionError(f"{p['mode']}: {len(p['syncs'])} host syncs, launches {p['launches']}")
+        replays = [{k: v["replays"] for k, v in st.items()} for st in p["stats"]]
+        routes = {v["route"] for st in p["stats"] for v in st.values()}
+        if p["mode"] == "graphed" and (replays != [want, want] or any(v["captured"] for st in p["stats"] for v in st.values())):
+            raise AssertionError(f"a graphed run on the reused executables does not replay every stage: {p['stats']}")
+        if p["mode"] == "eager" and routes != {"eager: disable_graphs()"}:
+            raise AssertionError(f"an eager run's routes: {routes}")
+    for mode in ("graphed", "eager"):
+        fps = [round(p["fps"], 3) for p in timed if p["mode"] == mode]
+        peak = max(p["peak_gib"] for p in timed if p["mode"] == mode)
+        phase("multiseq", f"{mode} ({smi}): {fps} fps over both sequences (interleaved {'/'.join(MULTISEQ_ORDER)}), "
+              f"median {statistics.median(fps):.3f}; peak memory {peak:.3f} GiB")
+    phase("multiseq", f"replays per shard and stage, graphed: {[{k: v['replays'] for k, v in st.items()} for st in timed[0]['stats']]}; "
+          f"{len(timed)} runs' state digests ({len(first['digests'][0])} fields per shard), poses and validity "
+          f"bit-equal to the first run's; 0 host syncs and {launches} launches in each")
+
+    busy = {}
+    for mode in ("graphed", "eager"):
+        busy[mode] = sharded_pass(torch, seqs, mesh, cfg, mode, trace=True)["trace"]
+        phase("multiseq", f"device-only trace, {mode} ({smi}): busy {busy[mode]['busy_share'] * 100:.1f}% of the "
+              f"chunk rounds' {busy[mode]['window_ms']:.1f} ms; device kernels {busy[mode]['launches_per_frame']:.1f} "
+              f"per frame (of both sequences); host launch calls {busy[mode]['host_launch_calls_per_frame']:.1f} per "
+              f"frame {busy[mode]['host_launch_calls']}")
+    with open(os.path.join(OUT_DIR, "multiseq_phase.json"), "w") as f:
+        json.dump(dict(device=smi, chunks=n_chunks, first={k: first[k] for k in ("seconds", "setup_s", "stats", "peak_gib")},
+                       timed=[{k: p[k] for k in ("mode", "fps", "seconds", "stats", "peak_gib")} for p in timed],
+                       busy=busy), f,
+                  indent=1)
 
     root = os.path.join(OUT_DIR, "app_multiseq")
     shutil.rmtree(root, ignore_errors=True)
@@ -1151,39 +1280,72 @@ def write_config_json(cfg, root: str) -> list[str]:
 
 def run_sharded(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     """Phase 10: the serial flagship pipeline with its global BA sharded over
-    a 2-shard mesh, against phase 4's unsharded pass."""
+    a 2-shard mesh (both shards on the pipeline's card, so the sharded
+    solve runs through the global_solve program): a first pass on a fresh
+    executable (it captures), a second (it replays) and an eager pass under
+    ``graphs.disable_graphs()``; all three bit-equal, against phase 4's
+    unsharded pass."""
+    from bundlefusion_tpu_torch import bench
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
     from bundlefusion_tpu_torch.parallel.mesh import make_mesh
+    from bundlefusion_tpu_torch.utils import graphs
 
+    smi = bench.device_line(dev)
     mesh = make_mesh(2, "cuda")
-    bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], mesh=mesh, device=dev)
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
+    passes = []
+    for mode in ("graphed", "graphed", "eager"):
+        with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
 
-    def steady():
-        for i in range(len(seq.poses)):
-            bf.push_frame(seq.depth[i], seq.color[i])
-        bf.flush()
+        def steady():
+            for i in range(len(seq.poses)):
+                bf.push_frame(seq.depth[i], seq.color[i])
+            bf.flush()
 
-    sites = sync_sites(torch, steady)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_launches()
-    record_launches(kernels_out, "sharded", launches)
-    out = bf.outputs()
-    n = min(len(out.poses), len(seq.poses))
-    ate = ate_rmse(out.poses[:n], seq.poses[:n], valid=out.valid[:n])
-    gap = float(np.abs(out.poses - ref["poses"]).max())
-    gs = bf.timing.summary()["global_solve"]
-    phase("sharded", f"{mesh!r}: {FLAGSHIP_FRAMES / dt:.3f} fps (phase 4: {ref['fps']:.3f}); ATE {ate * 100:.4f} cm; "
-          f"max |pose - phase 4's| {gap:.3g}; validity equal {np.array_equal(out.valid, ref['valid'])}; "
-          f"global_solve {gs['mean_ms']:.2f} ms per chunk (phase 4: {ref['global_solve_ms']:.2f}); launches "
-          f"{launches}; {len(sites)} host syncs")
-    phase("sharded", "stage timing (CUDA events):\n" + bf.timing.report())
-    if ate > ATE_BAR or not np.array_equal(out.valid, ref["valid"]):
-        raise AssertionError(f"sharded pipeline: ATE {ate}, validity equal {np.array_equal(out.valid, ref['valid'])}")
+        sites = sync_sites(torch, steady)
+        del steady  # it holds the pipeline, which must be freed before the next is built
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+        digests = state_digests(torch, bf)
+        out = bf.outputs()
+        passes.append(dict(mode=mode, fps=FLAGSHIP_FRAMES / dt, syncs=sites, launches=launches, digests=digests,
+                           poses=out.poses, valid=out.valid, stats=bf.graph_stats, chunks=bf.chunk_count,
+                           global_solve_ms=bf.timing.summary()["global_solve"]["mean_ms"],
+                           report=bf.timing.report()))
+        del bf, out
+        gc.collect()
+    first, replayed, eager = passes
+    record_launches(kernels_out, "sharded", replayed["launches"])
+    n = min(len(first["poses"]), len(seq.poses))
+    ate = ate_rmse(first["poses"][:n], seq.poses[:n], valid=first["valid"][:n])
+    gap = float(np.abs(first["poses"] - ref["poses"]).max())
+    gs = replayed["stats"]["global_solve"]
+    for p in passes:
+        phase("sharded", f"{mesh!r}, {p['mode']} ({smi}): {p['fps']:.3f} fps (phase 4: {ref['fps']:.3f}); "
+              f"global_solve {p['global_solve_ms']:.2f} ms per chunk (phase 4: {ref['global_solve_ms']:.2f}); "
+              f"global_solve program {p['stats']['global_solve']}; launches {p['launches']}; {len(p['syncs'])} host "
+              f"syncs")
+    phase("sharded", f"ATE {ate * 100:.4f} cm; max |pose - phase 4's| {gap:.3g}; validity equal "
+          f"{np.array_equal(first['valid'], ref['valid'])}; the three passes' state digests, poses and validity "
+          f"bit-equal")
+    phase("sharded", "stage timing of the replayed pass (CUDA events):\n" + replayed["report"])
+    if ate > ATE_BAR or not np.array_equal(first["valid"], ref["valid"]):
+        raise AssertionError(f"sharded pipeline: ATE {ate}, validity equal {np.array_equal(first['valid'], ref['valid'])}")
+    for p in passes[1:]:
+        diff = sorted(k for k in first["digests"] if first["digests"][k] != p["digests"].get(k))
+        if diff or not np.array_equal(first["poses"], p["poses"]) or not np.array_equal(first["valid"], p["valid"]):
+            raise AssertionError(f"the {p['mode']} sharded pass differs from the first: {diff[:8]}")
+    if not (gs["graph"] and gs["route"] == "graph" and not gs["captured"] and gs["replays"] == replayed["chunks"] - 1):
+        raise AssertionError(f"the sharded global solve did not replay once per chunk after the first: {gs}")
+    if eager["stats"]["global_solve"]["route"] != "eager: disable_graphs()":
+        raise AssertionError(f"the eager pass's route: {eager['stats']['global_solve']}")
+    if any(p["syncs"] for p in passes):
+        raise AssertionError(f"host syncs in the sharded pipeline: {[by_site(p['syncs']) for p in passes]}")
 
 
 def run_configs(torch, T, dev, kernels_out, seq, ref) -> None:
@@ -1751,31 +1913,20 @@ def summarize_trace(events: list, span: str, frames: int) -> dict:
     )
 
 
-def device_busy(torch, seq, cfg, dev) -> dict:
-    """One warm flagship pass of ``bench.run_pass`` with the device's activity
-    alone traced (no host op is recorded, so the host runs near its
-    unprofiled rate). Busy share: the union of kernel, memcpy and memset
-    intervals over the host's seconds from the first push_frame to the final
-    synchronize, inside which every device event of the trace lies; the
-    longest idle gaps between device events; K1 and K2 launches, counted
-    over this pass alone."""
-    from bundlefusion_tpu_torch import bench
-
+def device_only_trace(torch, fn, frames: int, name: str = "device_only") -> dict:
+    """``fn()`` with the device's activity alone traced (no host op is
+    recorded, so the host runs near its unprofiled rate). Busy share: the
+    union of kernel, memcpy and memset intervals over the host's seconds
+    from the start of ``fn`` to the synchronize after it, inside which
+    every device event of the trace lies; the longest idle gaps between
+    device events; device kernels and host launch calls per frame."""
     prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
-    window = {}
-
-    def traced(bf, steady):
-        with prof:
-            t0 = time.perf_counter()
-            steady()
-            torch.cuda.synchronize()
-            window["s"] = time.perf_counter() - t0
-
-    reset_launches()
-    bf, _ = bench.run_pass(seq, cfg, dev, wrap=traced)
-    launches, chunks = read_launches(), bf.chunk_count
-    del bf
-    path = os.path.join(OUT_DIR, "bench_profile_cuda.json")
+    with prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    path = os.path.join(OUT_DIR, f"{name}_trace.json")
     events = trace_events(prof, path)
     dev_events = [e for e in events if e.get("cat") in DEVICE_CATS]
     calls = launch_calls(events, float("-inf"), float("inf"))
@@ -1787,11 +1938,28 @@ def device_busy(torch, seq, cfg, dev) -> dict:
     gaps = sorted(((merged[i + 1][0] - merged[i][1], merged[i][1] - merged[0][0]) for i in range(len(merged) - 1)),
                   reverse=True)[:5]
     kernels = sum(1 for e in dev_events if e["cat"] == "kernel")
-    return dict(window_ms=window["s"] * 1e3, fps=len(seq.poses) / window["s"], busy_share=busy_us / (window["s"] * 1e6),
+    return dict(window_ms=secs * 1e3, fps=frames / secs, busy_share=busy_us / (secs * 1e6),
                 device_span_ms=(merged[-1][1] - merged[0][0]) / 1e3, kernels=kernels,
-                launches_per_frame=kernels / len(seq.poses), gaps=[dict(ms=g / 1e3, at_ms=t / 1e3) for g, t in gaps],
-                launches=launches, chunks=chunks, host_launch_calls=calls,
-                host_launch_calls_per_frame=sum(calls.values()) / len(seq.poses))
+                launches_per_frame=kernels / frames, gaps=[dict(ms=g / 1e3, at_ms=t / 1e3) for g, t in gaps],
+                host_launch_calls=calls, host_launch_calls_per_frame=sum(calls.values()) / frames)
+
+
+def device_busy(torch, seq, cfg, dev) -> dict:
+    """One warm flagship pass of ``bench.run_pass`` with the device's
+    activity alone traced (``device_only_trace`` over the pushes and the
+    flush); K1 and K2 launches, counted over this pass alone."""
+    from bundlefusion_tpu_torch import bench
+
+    got = {}
+
+    def traced(bf, steady):
+        got.update(device_only_trace(torch, steady, len(seq.poses), "bench_profile_cuda"))
+
+    reset_launches()
+    bf, _ = bench.run_pass(seq, cfg, dev, wrap=traced)
+    got.update(launches=read_launches(), chunks=bf.chunk_count)
+    del bf
+    return got
 
 
 def device_profile(torch, seq, cfg, dev) -> dict:
@@ -1908,14 +2076,15 @@ def graph_pass(torch, seq, cfg, dev, mode: str, watch: bool = False) -> dict:
 def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
     """Phase 15: the chunk step as captured CUDA graphs (``utils/graphs.py``)
     against the eager step (``graphs.disable_graphs()``) on the flagship 66
-    frames. A graphed pass on a fresh executable (warm-up at chunk 1,
-    capture at chunk 2; its readbacks counted), an eager warm pass, then
-    interleaved timed passes (E G G E E G) on the reused executable, then a
-    graphed pass under the sync counter and one device-only trace each way.
-    Every pass's state digests and poses equal; a graphed pass on a reused
-    executable replays every stage once per steady chunk; one K1 and one K2
-    launch per chunk, counted through replays; 0 readbacks; ATE <= 0.5 cm,
-    every chunk valid."""
+    frames. A graphed pass on a fresh executable (each program captured at
+    its first call, chunk 0's stages at chunk 0; its readbacks counted), an
+    eager warm pass, then interleaved timed passes (E G G E E G) on the
+    reused executable, then a graphed pass under the sync counter and one
+    device-only trace each way. Every pass's state digests and poses equal;
+    a graphed pass on a reused executable replays every program at every
+    chunk it runs, chunk 0 included (``bench.expected_replays``), and
+    captures nothing; one K1 and one K2 launch per chunk, counted through
+    replays; 0 readbacks; ATE <= 0.5 cm, every chunk valid."""
     from bundlefusion_tpu_torch import bench
     from bundlefusion_tpu_torch.bundle import pipeline as pipe
     from bundlefusion_tpu_torch.utils import graphs
@@ -1942,8 +2111,9 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
               f"median {statistics.median(fps):.3f}; stage means (ms, CUDA events; whole_chunk_step host clock) "
               f"{json.dumps(means)}; peak memory {peak:.3f} GiB")
     replays = {k: v["replays"] for k, v in watched["stats"].items()}
-    phase("graphs", f"graphed pass on the reused executable: replays {replays} over {chunks - 1} steady chunks; "
-          f"launches {watched['launches']}; readbacks {len(watched['syncs'])}; ATE {watched['ate'] * 100:.4f} cm")
+    phase("graphs", f"graphed pass on the reused executable: replays {replays} over {chunks} chunks, chunk 0's "
+          f"included; launches {watched['launches']}; readbacks {len(watched['syncs'])}; ATE "
+          f"{watched['ate'] * 100:.4f} cm")
     ref = first
     for p in passes:
         diff = sorted(k for k in ref["digests"] if ref["digests"][k] != p["digests"].get(k))
@@ -1955,11 +2125,18 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
             raise AssertionError(f"{p['mode']}: chunks valid {p['valid_chunks']}, ATE {p['ate'] * 100:.4f} cm")
     phase("graphs", f"{len(passes)} passes ({sum(p['mode'] == 'graphed' for p in passes)} graphed): state digests "
           f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in each")
-    if any(not first["stats"].get(k, {}).get("captured") or first["stats"][k]["replays"] != chunks - 2 for k in STAGES):
-        raise AssertionError(f"the first pass did not capture every stage and replay it from chunk 2: {first['stats']}")
-    if any(watched["stats"].get(k, {}).get("replays") != chunks - 1 or watched["stats"][k]["captured"] for k in STAGES):
-        raise AssertionError(f"a graphed pass on the reused executable does not replay once per steady chunk: "
-                             f"{watched['stats']}")
+    want = {k: n for k, n in bench.expected_replays(chunks, cfg).items() if n}
+    first_replays = {k: v["replays"] for k, v in first["stats"].items()}
+    if first_replays != {k: n - 1 for k, n in want.items()} or not all(v["captured"] for v in first["stats"].values()):
+        raise AssertionError(f"the first pass did not capture every program at its first call and replay it at "
+                             f"every later one: {first['stats']}")
+    for p in passes[1:]:
+        if p["mode"] == "graphed" and ({k: v["replays"] for k, v in p["stats"].items()} != want
+                                       or any(v["captured"] for v in p["stats"].values())):
+            raise AssertionError(f"a graphed pass on the reused executable does not replay every program at every "
+                                 f"chunk: {p['stats']}")
+        if p["mode"] == "eager" and {v["route"] for v in p["stats"].values()} != {"eager: disable_graphs()"}:
+            raise AssertionError(f"an eager pass's routes: {p['stats']}")
     if watched["syncs"]:
         raise AssertionError(f"readbacks in the graphed steady state: {by_site(watched['syncs'])}")
     record_launches(kernels_out, "graphs", watched["launches"])
@@ -1987,6 +2164,7 @@ def main() -> int:
     import bundlefusion_tpu_torch as T
     from bundlefusion_tpu_torch import bench, kernels
     from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.parallel import spmd_pipeline as spmd
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2002,6 +2180,7 @@ def main() -> int:
         # of the phases before it, but for phase 5, which replays phase 4's
         if name != "syncs":
             pipe._EXECUTABLES.clear()
+            spmd._EXECUTABLES.clear()
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -2009,7 +2188,8 @@ def main() -> int:
         gc.collect()
         phase(name, f"phase {time.perf_counter() - t0:.1f} s; card memory after it: allocated "
               f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved {torch.cuda.memory_reserved() / 2**30:.3f} "
-              f"GiB, {len(pipe._EXECUTABLES._free)} idle executables")
+              f"GiB, {len(pipe._EXECUTABLES._free)} + {len(spmd._EXECUTABLES._free)} idle executables (serial + "
+              f"shards)")
         return out
 
     kern = timed("kernels", check_kernels, torch, T, dev)

@@ -5,17 +5,20 @@ are held bit-equal by ``chip_smoke.py``'s phase "graphs").
 
 * chunk invariance: each steady stage runs the same operations, with the
   same argument shapes, dtypes and non-tensor arguments, at chunks 2 and 3
-  (a graph replays exactly the captured launches);
-* stable addresses: no state tensor, step input or static wire buffer moves
-  during a steady chunk (a graph addresses them);
+  (a graph replays exactly the captured launches), and chunk 0's
+  chunk_local, publish and plan_fuse run chunk 2's (one program serves
+  every chunk; chunk 0's graph step is a program of its own);
+* stable addresses: no state tensor, step input, static wire buffer or
+  carry moves during chunks 0-3 (a graph addresses them);
 * reuse: a pipeline on a reused executable gives bit for bit what a fresh
   one gives (over chunks 0 and 1: chunk 0's step and a steady one);
 * ``disable_graphs()`` nests and restores; a replay on inputs at other
   addresses raises.
 
 128x96 at the tiny configuration: one pass of 17 frames (chunks 0-3) with
-the operations of chunks 2 and 3 recorded, and 9 frames on the reused
-executable.
+the operations of every chunk recorded, and 9 frames on the reused
+executable. The multi-sequence driver, the mesh pipeline's global solve
+and GC are ``test_torch_graphs_sharded.py``.
 """
 
 import contextlib
@@ -25,12 +28,11 @@ import gc
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_flatten
 
 from bundlefusion_tpu_torch.bundle import pipeline as tpipe
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.utils import graphs
+from torch_oplog import OpLog, assert_same_ops
 from util import cached_sequence
 
 W, H, N = 128, 96, 17  # chunks 0-3 (S = 4)
@@ -52,29 +54,6 @@ def _cfg():
         c.app, input_width=W, input_height=H, integration_width=W, integration_height=H))
 
 
-def _arg(x):
-    if isinstance(x, torch.Tensor):
-        return ("tensor", tuple(x.shape), x.dtype)
-    return repr(x)
-
-
-class _OpLog(TorchDispatchMode):
-    """Every operation, with its arguments described, under the current
-    (chunk, stage) key."""
-
-    def __init__(self):
-        super().__init__()
-        self.key = None
-        self.ops: dict = {}
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        # (the profiler's span markers are no device work)
-        if self.key is not None and not str(func).startswith("profiler."):
-            leaves, _ = tree_flatten((args, kwargs or {}))
-            self.ops.setdefault(self.key, []).append((str(func), tuple(_arg(x) for x in leaves)))
-        return func(*args, **(kwargs or {}))
-
-
 def _state_tensors(bf) -> dict:
     out = {}
 
@@ -91,6 +70,7 @@ def _state_tensors(bf) -> dict:
     walk("state", bf.state)
     walk("step", bf._step)
     walk("wire", bf._wire)
+    walk("carry", bf._carry)
     return out
 
 
@@ -108,81 +88,111 @@ def seq():
     return cached_sequence(N, width=W, height=H)
 
 
-@pytest.fixture(scope="module")
-def recorded(seq):
-    """One pass on the caller's thread with every operation of the steady
-    stages of chunks 2 and 3 recorded, and the addresses of the state
-    before and after each stage; the state after chunk 1 is kept. Then the
-    pipeline is dropped, so its executable returns to the cache."""
+def _pipeline(seq):
+    """A pipeline that runs its ingest on the caller's thread."""
     mp = pytest.MonkeyPatch()
     mp.setenv("BF_SYNC_INGEST", "1")
     try:
-        bf = tpipe.BundleFusion(seq.camera, _cfg(), anchor_pose=seq.poses[0], device="cpu")
+        return tpipe.BundleFusion(seq.camera, _cfg(), anchor_pose=seq.poses[0], device="cpu")
     finally:
         mp.undo()
-    log, ptrs = _OpLog(), {}
+
+
+def _push_recorded(bf, seq, frames: int, ptrs: dict | None = None, snapshot_at: int | None = None):
+    """Push ``frames`` frames with every operation of the stages recorded by
+    (chunk, stage), and with ``ptrs`` the state's addresses before and after
+    each stage. Returns (operations, the snapshot after frame
+    ``snapshot_at``)."""
+    log, snap = OpLog(), None
     stage_of = bf.timing.stage
 
     @contextlib.contextmanager
     def stage(name, block=False):
         key = (bf.chunk_count, name)
-        ptrs[(key, "before")] = {k: t.data_ptr() for k, t in _state_tensors(bf).items()}
+        if ptrs is not None:
+            ptrs[(key, "before")] = {k: t.data_ptr() for k, t in _state_tensors(bf).items()}
         log.key = key if name in STEADY else None
         with stage_of(name, block=block):
             yield
         log.key = None
-        ptrs[(key, "after")] = {k: t.data_ptr() for k, t in _state_tensors(bf).items()}
+        if ptrs is not None:
+            ptrs[(key, "after")] = {k: t.data_ptr() for k, t in _state_tensors(bf).items()}
 
     bf.timing.stage = stage
-    for i in range(12):  # chunks 0 and 1
-        bf.push_frame(seq.depth[i], seq.color[i])
-        if i == 8:
-            after_chunk1 = _snapshot(bf)
-    with log:
-        for i in range(12, N):  # chunks 2 and 3
-            bf.push_frame(seq.depth[i], seq.color[i])
-    del bf.timing.stage
+    try:
+        with log:
+            for i in range(frames):
+                bf.push_frame(seq.depth[i], seq.color[i])
+                if i == snapshot_at:
+                    snap = _snapshot(bf)
+    finally:
+        del bf.timing.stage  # no cycle through the hook: the pipeline frees its executable when dropped
+    bf.sync()
+    return log.ops, snap
+
+
+@pytest.fixture(scope="module")
+def recorded(seq):
+    """One pass (chunks 0-3) with every operation of the stages recorded,
+    and the addresses of the state before and after each stage; the state
+    after chunk 1 is kept. Then the pipeline is dropped, so its executable
+    returns to the cache."""
+    bf, ptrs = _pipeline(seq), {}
+    ops, after_chunk1 = _push_recorded(bf, seq, N, ptrs, snapshot_at=8)
     assert bf.chunk_count == 4
     exe = bf._exe
-    del bf, stage
+    del bf
     gc.collect()
-    return dict(ops=log.ops, ptrs=ptrs, after_chunk1=after_chunk1, exe=exe)
+    return dict(ops=ops, ptrs=ptrs, after_chunk1=after_chunk1, exe=exe)
+
+
+@pytest.fixture(scope="module")
+def reused(recorded, seq):
+    """A second pipeline of the configuration, on the executable the
+    recorded pass returned, over chunks 0 and 1 with their operations
+    recorded."""
+    bf = _pipeline(seq)
+    ops, _ = _push_recorded(bf, seq, 9)
+    assert bf.chunk_count == 2
+    return dict(bf=bf, ops=ops)
 
 
 @pytest.mark.parametrize("stage", STEADY)
 def test_steady_stage_is_chunk_invariant(recorded, stage):
     """A stage runs the same operations with the same arguments at chunks
     2 and 3: a graph captured at one replays the other's work."""
-    a, b = recorded["ops"][(2, stage)], recorded["ops"][(3, stage)]
-    assert len(a) > 10
-    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-    assert first is None and len(a) == len(b), (
-        f"{stage}: {len(a)} against {len(b)} operations; first difference at {first}: "
-        f"{a[first] if first is not None else ''} / {b[first] if first is not None else ''}")
+    assert_same_ops(recorded["ops"][(2, stage)], recorded["ops"][(3, stage)], stage)
+
+
+@pytest.mark.parametrize("stage", ("chunk_local", "publish", "plan_fuse"))
+def test_chunk0_stage_is_the_steady_program(recorded, reused, stage):
+    """Chunk 0 runs these stages through the programs every later chunk
+    replays: the same operations with the same arguments as chunk 2's.
+    Chunk 0 is the second pipeline's: a process's first call of a stage
+    builds constants that it caches (``ops/preprocess.py::_gauss_band``),
+    which on a card the eager run before each capture absorbs."""
+    assert_same_ops(reused["ops"][(0, stage)], recorded["ops"][(2, stage)], f"{stage} at chunks 0 and 2")
 
 
 def test_state_keeps_its_addresses(recorded):
-    """No state tensor, step input or wire buffer moves during steady chunks
-    2 and 3 (every stage writes in place)."""
+    """No state tensor, step input, wire buffer or carry moves during chunks
+    0-3 (every stage writes in place; chunk 0 has no global solve)."""
     ptrs = recorded["ptrs"]
-    start = ptrs[((2, "chunk_local"), "before")]
+    start = ptrs[((0, "chunk_local"), "before")]
     assert len(start) > 40
-    for c in (2, 3):
+    for c in range(4):
         for stage in STEADY:
-            moved = sorted(k for k, p in ptrs[((c, stage), "after")].items() if p != start[k])
-            assert not moved, f"chunk {c}, {stage}: {moved} moved"
+            if ((c, stage), "after") in ptrs:
+                moved = sorted(k for k, p in ptrs[((c, stage), "after")].items() if p != start[k])
+                assert not moved, f"chunk {c}, {stage}: {moved} moved"
 
 
-def test_reused_executable_gives_the_same_result(recorded, seq):
+def test_reused_executable_gives_the_same_result(recorded, reused, seq):
     """A pipeline on the executable the recorded pass returned (its state
     reset in place, after two more chunks) gives the fresh pipeline's poses,
     TSDF and runlog rows after chunk 1 bit for bit."""
-    bf = tpipe.BundleFusion(seq.camera, _cfg(), anchor_pose=seq.poses[0], device="cpu")
+    bf = reused["bf"]
     assert bf._exe is recorded["exe"]
-    for i in range(9):
-        bf.push_frame(seq.depth[i], seq.color[i])
-    bf.sync()
-    assert bf.chunk_count == 2
     got, want = _snapshot(bf), recorded["after_chunk1"]
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -280,6 +280,9 @@ def test_worker_failure_reraises_from_sync(monkeypatch, stage):
 
 
 def test_second_pipeline_reuses_pooled_buffers():
+    # earlier pipelines return their buffers first: a failed one is held by a
+    # cycle through its futures' tracebacks until a collection
+    gc.collect()
     seq = cached_sequence(2, width=W, height=H)
     cfg = _cfg()
     bf = tpipe.BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device="cpu")
