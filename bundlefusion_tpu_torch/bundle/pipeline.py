@@ -163,6 +163,14 @@ def step_inputs(c: int, submap_size: int, chunk_frames: int, device) -> StepInpu
     )
 
 
+def reset_step(step: StepInputs) -> None:
+    """Set ``step`` to chunk 0's inputs (:func:`step_inputs`) in place."""
+    step.chunk.zero_()
+    torch.arange(step.new_ids.shape[0], out=step.new_ids)
+    step.new_valid.fill_(True)
+    step.exclude_from.zero_()
+
+
 def advance_step(step: StepInputs, submap_size: int) -> None:
     """Move ``step`` to the next chunk in place, on the device."""
     step.chunk.add_(1)
@@ -318,7 +326,7 @@ def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, in
     max_chunks = bc.max_frames // bc.submap_size
     cap = ac.blocks_per_frame_cap
     return FusionState(
-        anchor=torch.as_tensor(np.asarray(anchor, np.float32), device=dev),
+        anchor=torch.tensor(np.asarray(anchor, np.float32), device=dev),  # a copy: reset writes it
         graph=global_graph.make_graph(bc, bc.cache_height, bc.cache_width, dev),
         ctrl=make_ctrl(dev),
         table=blocks.make_table(ac.block_capacity, dev),
@@ -334,6 +342,22 @@ def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, in
         blocks_updated=torch.zeros((), device=dev),
         gc_freed_total=torch.zeros((), device=dev),
     )
+
+
+def reset_fusion_state(st: FusionState, anchor: np.ndarray) -> None:
+    """Set ``st`` to what :func:`make_fusion_state` makes, in place (a reused
+    executable's state; nothing of its size is allocated): every tensor to
+    zero, then the identity poses, the invalid keys, the slot list and the
+    empty ring, and ``anchor``."""
+    for t in graphs.tensors(st):
+        t.zero_()
+    st.anchor.copy_(torch.tensor(np.asarray(anchor, np.float32)))
+    for poses in (st.graph.poses, st.ctrl.last_rel, st.traj.integrated_pose, st.traj.opt_pose, st.local_trajs):
+        poses.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    for keys in (st.table.keys, st.table.key_of_slot, st.upd_keys):
+        keys.fill_(blocks.INVALID_KEY)
+    torch.arange(st.table.slot_of.shape[0], out=st.table.slot_of)
+    st.ring_frame.fill_(-1)
 
 
 def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: StepInputs, stats_in, d16_new,
@@ -463,15 +487,15 @@ def stream_ctx(device: torch.device, stream):
     return stack
 
 
-def checkout_step(cache: graphs.ExecutableCache, owner, key, device: torch.device, fresh, wire, submap_size: int,
-                  chunk_frames: int) -> graphs.Executable:
+def checkout_step(cache: graphs.ExecutableCache, owner, key, device: torch.device, fresh, anchor: np.ndarray, wire,
+                  submap_size: int, chunk_frames: int) -> graphs.Executable:
     """An idle executable of ``key`` from ``cache``, its fusion state reset in
-    place to ``fresh()`` and its step inputs to chunk 0's, or a new one
-    whose :class:`StepState` holds ``fresh()``, chunk 0's step inputs and
-    the static wire buffers ``wire()`` makes. It returns to the cache when
-    ``owner`` is garbage-collected (the JAX step's buffers are donated; a
-    dropped owner's state is reused). The state lives on the executable's
-    stream."""
+    place to what ``fresh()`` makes (with ``anchor``) and its step inputs to
+    chunk 0's, or a new one whose :class:`StepState` holds ``fresh()``,
+    chunk 0's step inputs and the static wire buffers ``wire()`` makes. It
+    returns to the cache when ``owner`` is garbage-collected (the JAX step's
+    buffers are donated; a dropped owner's state is reused). The state lives
+    on the executable's stream."""
 
     def build():
         exe = graphs.Executable(device, None)
@@ -483,8 +507,8 @@ def checkout_step(cache: graphs.ExecutableCache, owner, key, device: torch.devic
     exe, reused = cache.checkout(owner, key, build)
     if reused:
         with stream_ctx(device, exe.stream):
-            copy_into(exe.state.fusion, fresh())
-            copy_into(exe.state.step, step_inputs(0, submap_size, chunk_frames, device))
+            reset_fusion_state(exe.state.fusion, anchor)
+            reset_step(exe.state.step)
     return exe
 
 
@@ -807,7 +831,7 @@ class BundleFusion:
         # the mesh is part of the key: its shard count changes the sharded solve's operations
         mesh = None if self.mesh is None else tuple(map(str, self.mesh.devices))
         key = (self.config.to_json(), str(dev), tuple(self.cam), mesh)
-        return checkout_step(_EXECUTABLES, self, key, dev, fresh, wire, self.S, cf)
+        return checkout_step(_EXECUTABLES, self, key, dev, fresh, self.anchor, wire, self.S, cf)
 
     @property
     def graph_stats(self) -> dict[str, dict]:

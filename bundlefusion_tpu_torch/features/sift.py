@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from ..config import BundlingConfig
 from ..geometry.camera import CameraModel
 from ..ops.preprocess import _shift2d, gaussian_filter
@@ -175,13 +176,19 @@ def _unpack_grads(packed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return qx * inv - 0.5, qy * inv - 0.5
 
 
-def _extract_patches(tall: torch.Tensor, x0a: torch.Tensor, row0: torch.Tensor) -> torch.Tensor:
-    """Gather [N, K] patches [_PATCH, _PATCH_W] from the tall images [N, Ht, Wp]
-    (start indices clamped so every patch fits, as lax.gather's clip mode)."""
-    n, ht, wp = tall.shape
-    nb = wp // _BLK
+def _patch_origin(ht: int, wp: int, x0a: torch.Tensor, row0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where each key's [_PATCH, _PATCH_W] patch starts in the tall image
+    [Ht, Wp]: (row, column), clamped so that every patch fits, as
+    lax.gather's clip mode clamps it."""
     r0 = torch.clamp(row0, 0, ht - _PATCH)
-    c0 = torch.clamp(torch.div(x0a, _BLK, rounding_mode="floor"), 0, nb - _PATCH_W // _BLK) * _BLK
+    c0 = torch.clamp(torch.div(x0a, _BLK, rounding_mode="floor"), 0, wp // _BLK - _PATCH_W // _BLK) * _BLK
+    return r0, c0
+
+
+def _extract_patches(tall: torch.Tensor, x0a: torch.Tensor, row0: torch.Tensor) -> torch.Tensor:
+    """Gather [N, K] patches [_PATCH, _PATCH_W] from the tall images [N, Ht, Wp]."""
+    n, ht, wp = tall.shape
+    r0, c0 = _patch_origin(ht, wp, x0a, row0)
     dev = tall.device
     rows = r0[..., None] + torch.arange(_PATCH, device=dev)
     cols = c0[..., None] + torch.arange(_PATCH_W, device=dev)
@@ -201,8 +208,9 @@ def _sample_in_patches(patches: torch.Tensor, lx: torch.Tensor, ly: torch.Tensor
     return torch.sum(tmp * tx, dim=-1)
 
 
-def _gather_grads_patches(patches_x, patches_y, coords, x0, y0, h: int, w: int):
-    """Sample both gradient planes at window coords -> (gx, gy, mask)."""
+def _window_frame(coords, x0, y0, h: int, w: int):
+    """The window's patch-local coordinates (lx, ly), clamped into the
+    patch, and its mask (in the image and in the patch)."""
     x = coords[..., 0]
     y = coords[..., 1]
     inb = (x >= 0.0) & (x <= w - 1.001) & (y >= 0.0) & (y <= h - 1.001)
@@ -211,9 +219,83 @@ def _gather_grads_patches(patches_x, patches_y, coords, x0, y0, h: int, w: int):
     lx = torch.clamp(rx, 0.0, _PATCH_W - 1.001)
     ly = torch.clamp(ry, 0.0, _PATCH - 1.001)
     in_patch = (rx >= 0) & (rx < _PATCH_W - 1) & (ry >= 0) & (ry < _PATCH - 1)
-    gx = _sample_in_patches(patches_x, lx, ly)
-    gy = _sample_in_patches(patches_y, lx, ly)
-    return gx, gy, inb & in_patch
+    return lx, ly, inb & in_patch
+
+
+def _gather_grads_patches(patches_x, patches_y, coords, x0, y0, h: int, w: int):
+    """Sample both gradient planes at window coords -> (gx, gy, mask): the
+    JAX package's matmul form over gathered patches. The port samples with
+    :func:`sample_window` (K4); this form stays as the kernel's yardstick
+    on the card and is held to it by the tests."""
+    lx, ly, mask = _window_frame(coords, x0, y0, h, w)
+    return _sample_in_patches(patches_x, lx, ly), _sample_in_patches(patches_y, lx, ly), mask
+
+
+@kernels.counted
+def sample_window(g_tall: torch.Tensor, coords: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor,
+                  row0: torch.Tensor, h: int, w: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel K4: both gradient planes of the packed tall image ``g_tall``
+    [N, Ht, Wp] sampled bilinearly at the window ``coords`` [N, K, S, 2] of
+    keys whose patches start at (``row0``, ``x0``) [N, K] (window origin
+    ``x0``, ``y0``): (gx, gy, mask) [N, K, S], what
+    :func:`_gather_grads_patches` gives from the gathered patches, up to an
+    FMA's rounding. CUDA tensors launch the kernel (bit-equal to the twin on
+    the card); CPU tensors run the twin."""
+    if not g_tall.is_cuda:
+        return _sample_window_torch(g_tall, coords, x0, y0, row0, h, w)
+    kernels.require(g_tall, "g_tall", torch.float32)
+    if g_tall.dim() != 3:
+        raise ValueError(f"g_tall: expected [N, Ht, Wp], got {tuple(g_tall.shape)}")
+    nf, ht, wp = g_tall.shape
+    if ht < _PATCH or wp < _PATCH_W or wp % _BLK:
+        raise ValueError(f"g_tall {tuple(g_tall.shape)}: a [{_PATCH}, {_PATCH_W}] patch of {_BLK}-column blocks "
+                         "must fit")
+    coords = coords.contiguous()
+    nk, ns = coords.shape[1], coords.shape[2]
+    kernels.require(coords, "coords", torch.float32, (nf, nk, ns, 2))
+    x0, y0, row0 = (t.contiguous() for t in (x0, y0, row0))
+    for name, t in (("x0", x0), ("y0", y0), ("row0", row0)):
+        kernels.require(t, name, torch.int64, (nf, nk))
+    gx = torch.empty((nf, nk, ns), dtype=torch.float32, device=g_tall.device)
+    gy = torch.empty_like(gx)
+    mask = torch.empty((nf, nk, ns), dtype=torch.bool, device=g_tall.device)
+    err = kernels.library().bf_sift_sample(
+        g_tall.data_ptr(), coords.data_ptr(), x0.data_ptr(), y0.data_ptr(), row0.data_ptr(), gx.data_ptr(),
+        gy.data_ptr(), mask.data_ptr(), nf, nk, ns, ht, wp, w - 1.001, h - 1.001, _PATCH_W - 1.001,
+        _PATCH - 1.001, kernels.stream_ptr(g_tall.device),
+    )
+    kernels.check(err, "sift_sample")
+    sample_window.launches += 1
+    return gx, gy, mask
+
+
+def _sample_window_torch(g_tall, coords, x0, y0, row0, h: int, w: int):
+    """K4's twin: the matmul form's two non-zero rows and columns of tent
+    weights, gathered (as ``ops/preprocess.py::bilinear_sample_gather``):
+    the same clamps, the tents clamp(1 - |l - l0|, 0) and clamp(1 - |l -
+    (l0 + 1)|, 0) with l0 = floor(l), the same order (along rows, then
+    along columns). The taps are read from the tall image where the
+    clamped patch holds them, each unpacked by :func:`_unpack_grads`. A NaN
+    coordinate reads the patch's first tap with NaN weights."""
+    n, ht, wp = g_tall.shape
+    lx, ly, mask = _window_frame(coords, x0, y0, h, w)
+    r0, c0 = _patch_origin(ht, wp, x0, row0)
+    lx0 = torch.nan_to_num(torch.floor(lx), nan=0.0)
+    ly0 = torch.nan_to_num(torch.floor(ly), nan=0.0)
+    ty0 = torch.clamp(1.0 - torch.abs(ly - ly0), min=0.0)
+    ty1 = torch.clamp(1.0 - torch.abs(ly - (ly0 + 1.0)), min=0.0)
+    tx0 = torch.clamp(1.0 - torch.abs(lx - lx0), min=0.0)
+    tx1 = torch.clamp(1.0 - torch.abs(lx - (lx0 + 1.0)), min=0.0)
+    base = ((r0[..., None] + ly0.to(torch.int64)) * wp + c0[..., None] + lx0.to(torch.int64)).reshape(n, -1)
+    flat = g_tall.reshape(n, -1)
+
+    def tap(offset):
+        return _unpack_grads(torch.gather(flat, 1, base + offset).reshape(lx.shape))
+
+    (ax, ay), (bx, by), (cx, cy), (dx, dy) = tap(0), tap(wp), tap(1), tap(wp + 1)
+    gx = (ty0 * ax + ty1 * bx) * tx0 + (ty0 * cx + ty1 * dx) * tx1
+    gy = (ty0 * ay + ty1 * by) * tx0 + (ty0 * cy + ty1 * dy) * tx1
+    return gx, gy, mask
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
@@ -230,11 +312,10 @@ def _orientation_and_desc(g_tall, xy_oct, sigma_oct, scale_idx, h: int, w: int):
     x0 = torch.div(x0, _BLK, rounding_mode="floor") * _BLK
     y0 = torch.clamp(yi - _PATCH // 2, 0, max(h - _PATCH, 0))
     row0 = scale_idx * h + y0
-    patches_x, patches_y = _unpack_grads(_extract_patches(g_tall, x0, row0))
 
     # orientation: unrotated window, 36-bin histogram
     coords = _window_coords(xy_oct, sigma_oct, torch.zeros_like(sigma_oct), 0.4)
-    gx, gy, m = _gather_grads_patches(patches_x, patches_y, coords, x0, y0, h, w)
+    gx, gy, m = sample_window(g_tall, coords, x0, y0, row0, h, w)
     mag = torch.sqrt(gx * gx + gy * gy) * m * gauss_w
     ang = torch.atan2(gy, gx)
     binf = (ang + math.pi) / (2 * math.pi) * _NBINS_ORI
@@ -259,7 +340,7 @@ def _orientation_and_desc(g_tall, xy_oct, sigma_oct, scale_idx, h: int, w: int):
 
     # descriptor: rotated window
     coords_d = _window_coords(xy_oct, sigma_oct, theta, 0.75)
-    gx, gy, m = _gather_grads_patches(patches_x, patches_y, coords_d, x0, y0, h, w)
+    gx, gy, m = sample_window(g_tall, coords_d, x0, y0, row0, h, w)
     mag = torch.sqrt(gx * gx + gy * gy) * m * gauss_w
     ang = torch.atan2(gy, gx) - theta[..., None]
     binf = (ang / (2 * math.pi)) * _DESC_ORI

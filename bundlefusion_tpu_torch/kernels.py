@@ -26,7 +26,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("tsdf_integrate.cu", "preprocess.cu")
+SOURCES = ("tsdf_integrate.cu", "preprocess.cu", "assemble.cu", "sift_sample.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "libbf_kernels.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,6 +36,8 @@ _SIGNATURES = {
     "bf_tsdf_fuse": [_P, _P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P]
     + [_F] * 8 + [_P],
     "bf_preprocess": [_P, _P, _P, _P, _I, _I, _I] + [_F] * 6 + [_I, _P],
+    "bf_assemble": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "bf_sift_sample": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P],
 }
 
 

@@ -140,7 +140,8 @@ class ShardedRun:
                         torch.zeros((cf, h, w, 3), dtype=torch.uint8, device=dev))
 
             key = (cfg.to_json(), str(dev), tuple(cam), "v1 wire")
-            self.exes.append(checkout_step(_EXECUTABLES, self.tables, key, dev, fresh, wire, bc.submap_size, cf))
+            exe = checkout_step(_EXECUTABLES, self.tables, key, dev, fresh, anchors[i], wire, bc.submap_size, cf)
+            self.exes.append(exe)
             self.tables.append(self.exes[-1].state.fusion.table)
         self.shards: list[FusionState] = [exe.state.fusion for exe in self.exes]
         self._counters_at_start = [exe.counters() for exe in self.exes]

@@ -1,9 +1,10 @@
 """Normal-equation assembly and PCG (port of ``bundlefusion_tpu.solver.system``).
 
-The per-pair 12x12 blocks are scattered once into a dense [6N, 6N] system
-and PCG runs with plain matvecs. The scatter-adds run on PyTorch's
-deterministic kernels (``tensor_ops.deterministic``): duplicates sum in index
-order, so runs are bit-reproducible on the card as in the JAX package.
+The per-pair 12x12 blocks are summed once into a dense [6N, 6N] system and
+PCG runs with plain matvecs. On a card the assembly is kernel K3
+(``csrc/assemble.cu``); its twin, for CPU tensors, scatter-adds on
+PyTorch's deterministic kernels (``tensor_ops.deterministic``): duplicates
+sum in index order, so runs are bit-reproducible as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,12 +13,45 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import kernels
 from ..utils.tensor_ops import deterministic
 
 
+@kernels.counted
 def assemble_system(num_images, pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mask, damping: float = 1e-6):
-    """Scatter per-pair blocks into (H [6N, 6N], b [6N]); gauge-fix the rows
-    of poses that are not free."""
+    """Kernel K3: sum per-pair blocks into (H [6N, 6N], b [6N]); gauge-fix the
+    rows of poses that are not free. CUDA tensors launch the kernel (bit-equal
+    to the twin on the card); CPU tensors run the twin."""
+    if not JtJ_pairs.is_cuda:
+        return _assemble_system_torch(num_images, pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mask, damping)
+    n, p = num_images, JtJ_pairs.shape[0]
+    if pairs_a.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"pairs_a: expected int32 or int64, got {pairs_a.dtype}")
+    pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mask = (
+        x.contiguous() for x in (pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mask))
+    kernels.require(pairs_a, "pairs_a", pairs_a.dtype, (p,))
+    kernels.require(pairs_b, "pairs_b", pairs_a.dtype, (p,))
+    kernels.require(JtJ_pairs, "JtJ_pairs", torch.float32, (p, 12, 12))
+    kernels.require(Jtr_pairs, "Jtr_pairs", torch.float32, (p, 12))
+    kernels.require(free_mask, "free_mask", torch.bool, (n,))
+    if JtJ_pairs.data_ptr() % 16:  # the kernel reads the blocks' rows as float4
+        JtJ_pairs = JtJ_pairs.clone()
+    dev = JtJ_pairs.device
+    H = torch.empty((6 * n, 6 * n), dtype=torch.float32, device=dev)
+    b = torch.empty(6 * n, dtype=torch.float32, device=dev)
+    err = kernels.library().bf_assemble(
+        pairs_a.data_ptr(), pairs_b.data_ptr(), int(pairs_a.dtype == torch.int64), JtJ_pairs.data_ptr(),
+        Jtr_pairs.data_ptr(), free_mask.data_ptr(), H.data_ptr(), b.data_ptr(), n, p, damping, 1e-8,
+        kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "assemble")
+    assemble_system.launches += 1
+    return H, b
+
+
+def _assemble_system_torch(num_images, pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mask, damping: float = 1e-6):
+    """K3's twin: scatter per-pair blocks into (H [6N, 6N], b [6N]); gauge-fix
+    the rows of poses that are not free."""
     n = num_images
     pa, pb = pairs_a.long(), pairs_b.long()
     Hb = torch.zeros((n * n, 6, 6), dtype=JtJ_pairs.dtype, device=JtJ_pairs.device)

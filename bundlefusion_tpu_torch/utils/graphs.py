@@ -11,21 +11,23 @@ configuration. Here:
     initialisation, library handles and kernel loading happen outside any
     capture, and the call's work is this run's), then captures the function
     on the caller's current stream into a ``torch.cuda.CUDAGraph`` (a
-    capture runs nothing) and copies the eager run's results into the
-    graph's output buffers. So a program captures at its first call, which
-    a stage that runs once per pipeline needs (chunk 0's graph step): the
-    first pipeline of a configuration captures it, every later one replays
-    it. The graphs of one :class:`Executable` draw on one memory pool;
+    capture runs nothing); the graph ends by copying its results into the
+    eager run's result tensors, which stay the program's outputs. So a
+    program captures at its first call, which a stage that runs once per
+    pipeline needs (chunk 0's graph step): the first pipeline of a
+    configuration captures it, every later one replays it. The graphs of
+    one :class:`Executable` draw on one memory pool;
   * replay ≙ dispatch: every later call replays the graph, one launch;
   * in-place update of persistent state ≙ donation: a program's inputs are
     the same tensors at every call (checked: a replay against inputs at
     other addresses raises), and it writes its results into them.
 
-The programs of an executable share its pool: a graph's outputs may lie
-where a program captured before it keeps its temporaries. So read a
-program's outputs before another program of the executable runs (the chunk
-step's only such output, ``chunk_local``'s, is read by the graph step right
-after it, and ``chunk_local`` is always captured first).
+The programs of an executable share its pool, so a graph's temporaries may
+lie where a program captured before it kept its own. A program's outputs
+never do: they are the eager run's tensors, allocated outside the pool and
+held by the program, so no capture draws on their storage and a replay of
+another program cannot overwrite them. They stay valid until the program
+itself runs again, in whatever order the programs replay.
 
 An :class:`ExecutableCache` keeps executables (their programs and the state
 they address) by key, as jit's cache keeps compiled programs by
@@ -106,6 +108,11 @@ def _leaves(obj, out: list) -> list:
     return out
 
 
+def tensors(obj) -> list[torch.Tensor]:
+    """The tensors of a nest of dataclasses, tuples and lists, in order."""
+    return [x for x in _leaves(obj, []) if isinstance(x, torch.Tensor)]
+
+
 def _signature(args) -> tuple:
     """What a graph bakes in about its inputs: each tensor's address, shape,
     strides and dtype, and every other value."""
@@ -141,10 +148,7 @@ class Program:
         if self.graph is None:
             eager = self.fn(*args)
             self.warm = True
-            self._capture(args)
-            for dst, src in zip(_leaves(self.outputs, []), _leaves(eager, [])):
-                if isinstance(dst, torch.Tensor) and dst is not src:
-                    dst.copy_(src)
+            self._capture(args, eager)
             return self.outputs
         if _signature(args) != self._signature:
             raise RuntimeError(f"program {self.name}: replayed on other inputs than it was captured with "
@@ -155,13 +159,18 @@ class Program:
             fn.launches += n
         return self.outputs
 
-    def _capture(self, args) -> None:
+    def _capture(self, args, eager) -> None:
+        """Capture ``fn(*args)``; the graph copies its results into
+        ``eager``'s tensors (the outputs), so nothing it returns lives in the
+        pool."""
         t0 = time.perf_counter()
         before = _launch_counts()
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
-            outputs = self.fn(*args)
+            for dst, src in zip(tensors(eager), tensors(self.fn(*args)), strict=True):
+                if dst.data_ptr() != src.data_ptr():  # an input returned as it is is already in place
+                    dst.copy_(src)
         except BaseException:
             with contextlib.suppress(RuntimeError):  # the capture is invalid; the function's error is the one to see
                 graph.capture_end()
@@ -171,7 +180,7 @@ class Program:
         self._launches = [a - b for a, b in zip(_launch_counts(), before)]
         for fn, n in zip(kernels.COUNTED, self._launches):
             fn.launches -= n
-        self.graph, self.outputs, self._signature = graph, outputs, _signature(args)
+        self.graph, self.outputs, self._signature = graph, eager, _signature(args)
         self.capture_s = time.perf_counter() - t0
 
 

@@ -18,12 +18,21 @@ exits non-zero; there is no CPU fallback):
                 and once with the v1 ring's full-res colour (bit-equal to the
                 twin), and ``tsdf.deintegrate``'s single inverse row; K2 over
                 a chunk's 11 frames with and without the point and normal
-                maps.
+                maps; K3 (the normal-equation assembly) at the global solve's
+                16,384 slots and n = 128 without and with the 4,096
+                dense-pair slots, at the local solve's shape and as a sharded
+                partial (damping 0), slots filled as a global graph fills
+                them (``assembly_inputs``), against its twin (today's
+                deterministic index_add_ body) and the six index_add_ calls
+                alone; K4 (SIFT's window sampling) at one flagship octave (11
+                frames x 512 keys x 256 window points, border keys, clamped
+                patch origins), both windows, against its twin and the matmul
+                form it replaced. Every kernel bit-equal to its twin.
   4. slice    — the flagship configuration of ``bench.py`` (640x480, 262,144
                 blocks, 1 cm voxels) on 66 rendered frames through
                 push_frame -> flush -> outputs (async ingest, the default):
                 a warm pass, then a timed pass; every chunk valid, ATE <= 0.5
-                cm, both kernels launched.
+                cm, all four kernels launched (K1, K2, K4 as counted per chunk).
                 Then a small configuration (128x96, 13 frames) run on the CPU
                 (twins) and twice on the card (kernels): CPU and card agree,
                 and the card runs are bit-identical.
@@ -68,7 +77,9 @@ exits non-zero; there is no CPU fallback):
                 its own: a first run on fresh executables (fps over both,
                 capture seconds, every chunk valid, ATE <= 0.5 cm each, one
                 K1 and one K2 launch per shard and chunk, 0 host syncs in
-                the chunk rounds, peak memory with two shard executables),
+                the chunk rounds, peak memory with two shard executables;
+                the graphed runs on the reused executables, whose state is
+                reset in place, peak within 0.05 GiB of it),
                 then timed runs interleaved graphed / eager / eager /
                 graphed (``graphs.disable_graphs()``): fps each way, the
                 replays per shard and stage, each shard's state digests
@@ -131,9 +142,12 @@ exits non-zero; there is no CPU fallback):
                 of every thread (kernel launches and host launch calls per
                 frame, the top 10
                 device operations, the 5 longest idle gaps with the host
-                spans open during each, idle time by stage; the gzipped
+                spans open during each, idle time by stage, device time by
+                stage and the port's four kernels by stage; the gzipped
                 trace goes to ``chiprun_out/``); a profile without device
-                events fails. Then the port's bench, ``python -m
+                events fails. Then ``filters.dense_verify``'s bilinear
+                sampling (the matmul form, still on the main path) timed
+                alone at its call shapes, against the gather form. Then the port's bench, ``python -m
                 bundlefusion_tpu_torch.bench`` (the counterpart of
                 bench.py), in a subprocess at the flagship (5 timed passes)
                 and at 320x240 with 32,768 blocks (3 passes): its result
@@ -155,15 +169,19 @@ exits non-zero; there is no CPU fallback):
                 the first pass captures each program at its first call; a
                 later graphed pass replays every program at every chunk it
                 runs (``graph_step_first`` once, ``chunk_local`` at every
-                chunk); one K1 and one K2 launch per chunk counted through
-                replays; 0 readbacks; ATE <= 0.5 cm, every chunk valid.
+                chunk); one K1 and one K2 launch per chunk, K4 twice per
+                SIFT octave and chunk and K3 at least once per GN iteration,
+                counted through replays; 0 readbacks; ATE <= 0.5 cm, every
+                chunk valid. Then two programs of one executable: the
+                outputs of the one captured second survive a replay of the
+                first (they are not in the shared pool).
 
 Phases 4-14 run the chunk step graphed (each program captured at its first
 call when its executable is fresh, chunk 0's stages at chunk 0, and
 replayed after); phase 5's window replays the executable phase 4 captured,
-and says so. Phases 6-15 set the kernels' launch counts to 0 before their
-run and read them after it (a replay adds the launches its graph captured):
-each of their paths must launch both kernels. Small outputs
+and says so. Phases 4 and 6-15 set the kernels' launch counts to 0 before
+their run and read them after it (a replay adds the launches its graph
+captured): each of their paths must launch all four kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
@@ -313,9 +331,9 @@ def bound(nbytes: float, flops: float, mufu: float) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, **extra):
+def kernel_entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by, library_ms=None, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces, launches=0, max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 share_of_bound=bound_ms / ms, **extra)
 
 
@@ -478,6 +496,216 @@ def check_k2(torch, T, dev, depth, cam):
     )
 
 
+def assembly_inputs(seed: int, n: int, slots: int, live_images: int, per_pair: int, live_share: float,
+                    dense: int = 0, dense_live: int = 0, pruned: float = 0.1, idx64: bool = False):
+    """Normal-equation blocks for ``assemble_system``, filled as a global
+    graph fills its correspondence slots: runs of ``per_pair / 2`` to
+    ``per_pair`` consecutive slots per live pair (each new keyframe against
+    its predecessor, then loop pairs; either end first) among the first ``live_images``
+    keyframes up to ``live_share`` of the slots, a ``pruned`` share of the
+    live slots at weight 0, the rest empty at (0, 0) with weight 0 (blocks of
+    exact zeros, -0.0 among them); then ``dense`` dense-pair slots, of which
+    ``dense_live`` are active, the others at (0, 0) with zero blocks. Keyframe
+    0 is the gauge and keyframes from ``live_images`` on are not valid.
+    Returns numpy (pa, pb, JtJ [P, 12, 12], Jtr [P, 12], free [n])."""
+    rng = np.random.default_rng(seed)
+    pa, pb, w = np.zeros(slots, np.int64), np.zeros(slots, np.int64), np.zeros(slots, np.float32)
+    pairs = [(c - 1, c) for c in range(1, live_images)]
+    cursor, i = 0, 0
+    while True:
+        if i >= len(pairs):
+            a, b = sorted(rng.choice(live_images, 2, replace=False))
+            pairs.append((int(a), int(b)))
+        k = int(rng.integers(per_pair // 2, per_pair + 1))
+        if cursor + k > live_share * slots:
+            break
+        a, b = pairs[i] if rng.random() < 0.5 else pairs[i][::-1]  # either end may be the newer keyframe
+        pa[cursor:cursor + k], pb[cursor:cursor + k], w[cursor:cursor + k] = a, b, 1.0
+        cursor, i = cursor + k, i + 1
+    w[:cursor][rng.random(cursor) < pruned] = 0.0
+    J = rng.standard_normal((slots, 3, 12)).astype(np.float32)
+    r = (rng.standard_normal((slots, 3)) * 0.01).astype(np.float32)
+    JtJ = np.einsum("kri,krj->kij", J, J * w[:, None, None]).astype(np.float32)
+    Jtr = np.einsum("kri,kr->ki", J, r * w[:, None]).astype(np.float32)
+    if dense:
+        da, db = np.zeros(dense, np.int64), np.zeros(dense, np.int64)
+        on = rng.choice(dense, dense_live, replace=False)
+        for j in on:
+            da[j], db[j] = sorted(rng.choice(live_images, 2, replace=False))
+        Jd = rng.standard_normal((dense, 8, 12)).astype(np.float32)
+        wd = np.isin(np.arange(dense), on).astype(np.float32)
+        pa, pb = np.concatenate([pa, da]), np.concatenate([pb, db])
+        JtJ = np.concatenate([JtJ, np.einsum("kri,krj->kij", Jd, Jd * wd[:, None, None]).astype(np.float32)])
+        Jtr = np.concatenate([Jtr, np.einsum("kri,kr->ki", Jd, wd[:, None] * 0.01).astype(np.float32)])
+    free = (np.arange(n) > 0) & (np.arange(n) < live_images)
+    if not idx64:
+        pa, pb = pa.astype(np.int32), pb.astype(np.int32)
+    return pa, pb, JtJ, Jtr, free
+
+
+def check_k3(torch, dev):
+    """K3 against its twin (today's deterministic index_add_ body) at the
+    flagship's shapes: the global solve's 16,384 slots at n = 128 without and
+    with the 4,096 dense-pair slots, filled by 60 keyframes and as the
+    flagship pass's last solve fills them, the local solve's 1,024 slots and 55
+    dense pairs at n = 11, and a sharded partial (half the global slots,
+    damping 0). Each bit-equal to the twin; times for the global ones."""
+    from bundlefusion_tpu_torch.solver import system
+    from bundlefusion_tpu_torch.utils.tensor_ops import deterministic
+
+    bc = flagship_config().bundling
+    n, slots, nd = bc.max_num_images, bc.max_residuals_global, bc.max_dense_pairs_global
+    cases = {
+        "global": (assembly_inputs(1, n, slots, 60, 400, 0.7), 1e-6),
+        # as the flagship pass's last solve holds them: 7 keyframes, 1,344 slots live (corr_cursor)
+        "global_7_keyframes": (assembly_inputs(6, n, slots, 7, 192, 1344 / slots), 1e-6),
+        "global_dense": (assembly_inputs(2, n, slots, 60, 400, 0.7, dense=nd, dense_live=21, idx64=True), 1e-6),
+        "local": (assembly_inputs(3, bc.chunk_size, bc.max_residuals_local, bc.chunk_size, 60, 0.9,
+                                  dense=55, dense_live=50, idx64=True), 1e-6),
+        "sharded_partial": (assembly_inputs(4, n, slots // 2, 60, 400, 0.7), 0.0),
+    }
+    out = {}
+    for name, (arrays, damping) in cases.items():
+        pa, pb, JtJ, Jtr, free = (torch.as_tensor(a, device=dev) for a in arrays)
+        m = free.shape[0]
+        args = (m, pa, pb, JtJ, Jtr, free, damping)
+        Hk, bk = system.assemble_system(*args)
+        Ht, bt = system._assemble_system_torch(*args)
+        torch.cuda.synchronize()
+        err = max(float((Hk - Ht).abs().max()), float((bk - bt).abs().max()))
+        if err != 0.0 or not (torch.equal(Hk, Ht) and torch.equal(bk, bt)):
+            raise AssertionError(f"K3 {name}: not bit-equal to its twin (max |err| {err})")
+        # bytes: every block value and index read once, H and b written once;
+        # operations: the additions of the non-zero updates (six values each)
+        p = JtJ.shape[0]
+        nbytes = p * (144 + 12) * 4 + 2 * p * pa.element_size() + m + (36 * m * m + 6 * m) * 4
+        blk = JtJ.reshape(p, 2, 6, 2, 6)
+        nonzero = int((blk != 0).any(dim=-1).sum()) + int((Jtr != 0).sum())  # rows of updates, b's entries
+        rec = dict(n=m, slots=p, live_slots=int((JtJ != 0).flatten(1).any(1).sum()), damping=damping,
+                   max_abs_err=err)
+        if name != "local":
+            bound_ms, bound_by = bound(nbytes, nonzero * 6, 0)
+            ms = cuda_ms(torch, lambda: system.assemble_system(*args))
+            plain_ms = cuda_ms(torch, lambda: system._assemble_system_torch(*args), n=5, batch=1)
+
+            def index_adds():  # today's six deterministic index_add_ calls alone (no gauge or permute)
+                Hb = torch.zeros((m * m, 6, 6), device=dev)
+                bv = torch.zeros((m, 6), device=dev)
+                a, b = pa.long(), pb.long()
+                with deterministic():
+                    for idx, blkv in ((a * m + a, JtJ[:, :6, :6]), (a * m + b, JtJ[:, :6, 6:]),
+                                      (b * m + a, JtJ[:, 6:, :6]), (b * m + b, JtJ[:, 6:, 6:])):
+                        Hb.index_add_(0, idx, blkv)
+                    bv.index_add_(0, a, Jtr[:, :6])
+                    bv.index_add_(0, b, Jtr[:, 6:])
+
+            lib_ms = cuda_ms(torch, index_adds, n=5, batch=1)
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+            phase("kernels", f"K3 assemble {name}: n={m}, {p} slots ({rec['live_slots']} with a non-zero block), "
+                  f"damping {damping}; bit-equal to the twin; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
+                  f"the six index_add_ calls {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+                  f"{bound_ms / ms:.3f}")
+        else:
+            phase("kernels", f"K3 assemble {name}: n={m}, {p} slots ({rec['live_slots']} with a non-zero block); "
+                  f"bit-equal to the twin")
+        out[name] = rec
+        del Hk, bk, Ht, bt
+    g = out["global"]
+    return kernel_entry("assemble", "bundlefusion_tpu_torch/csrc/assemble.cu", "bundlefusion_tpu/solver/system.py:24",
+                        max(r["max_abs_err"] for r in out.values()), g["ms"], g["plain_ms"], g["bound_ms"],
+                        g["bound_by"], g["library_ms"],
+                        library_ms_is="the six deterministic index_add_ calls of the twin, not one call", cases=out)
+
+
+# K4 (SIFT window sampling): operations of one window point (offsets,
+# clamps, floors, tents 12, four taps unpacked 32, both planes combined 12,
+# masks 8)
+K4_FLOPS = 74
+
+
+def sift_inputs(seed: int, frames: int, keys: int, h: int, w: int, levels: int):
+    """One octave's packed gradient image (exact integers qx * 4096 + qy) of
+    ``frames`` frames, and ``keys`` keys per frame spread over the image,
+    four of them at its borders (their windows leave the image and the
+    patch) and two more with patch origins the gather clamps. Returns numpy
+    (g_tall [F, Ht, Wp], xy [F, K, 2], sigma, theta [F, K], x0, y0, row0 [F, K])."""
+    rng = np.random.default_rng(seed)
+    patch, blk, patch_w = 64, 64, 128
+    wp = max(-(-(w + blk) // blk) * blk, patch_w)
+    ht = levels * h + patch
+    q = rng.integers(0, 4096, size=(frames, ht, wp, 2))
+    g_tall = (q[..., 0] * 4096.0 + q[..., 1]).astype(np.float32)
+    xy = np.stack([rng.uniform(0, w - 1, (frames, keys)), rng.uniform(0, h - 1, (frames, keys))], -1)
+    xy[:, :4] = [[0.2, 3.0], [w - 1.2, 5.5], [7.0, 0.1], [w - 2.0, h - 1.5]]
+    xy = xy.astype(np.float32)
+    sigma = rng.uniform(1.6, 6.0, (frames, keys)).astype(np.float32)
+    theta = rng.uniform(-np.pi, np.pi, (frames, keys)).astype(np.float32)
+    xi, yi = np.round(xy[..., 0]).astype(np.int64), np.round(xy[..., 1]).astype(np.int64)
+    x0 = np.clip(xi - patch // 2, 0, max(w - patch, 0)) // blk * blk
+    y0 = np.clip(yi - patch // 2, 0, max(h - patch, 0))
+    row0 = rng.integers(0, levels, (frames, keys)) * h + y0
+    x0[:, 4], row0[:, 5] = wp, ht - 10  # clamped by the gather
+    return g_tall, xy, sigma, theta, x0, y0, row0
+
+
+def check_k4(torch, dev):
+    """K4 against its twin at one flagship octave (11 frames x 512 keys x 256
+    window points at 640x480, 4 Gaussian levels): the unrotated orientation
+    window and the rotated descriptor window, each bit-equal; times for the
+    descriptor window, against the matmul form it replaced (patch gather,
+    unpack, tent-weight GEMMs)."""
+    from bundlefusion_tpu_torch.features import sift
+
+    bc = flagship_config().bundling
+    h, w = FULL[1], FULL[0]
+    g_tall, xy, sigma, theta, x0, y0, row0 = (torch.as_tensor(a, device=dev) for a in sift_inputs(
+        5, bc.chunk_size, bc.max_keys_per_image, h, w, bc.sift_scales_per_octave + 1))
+    windows = {"orientation": sift._window_coords(xy, sigma, torch.zeros_like(theta), 0.4),
+               "descriptor": sift._window_coords(xy, sigma, theta, 0.75)}
+    errs = {}
+    for name, coords in windows.items():
+        got = sift.sample_window(g_tall, coords, x0, y0, row0, h, w)
+        want = sift._sample_window_torch(g_tall, coords, x0, y0, row0, h, w)
+        torch.cuda.synchronize()
+        errs[name] = max(float((got[0] - want[0]).abs().max()), float((got[1] - want[1]).abs().max()))
+        if errs[name] != 0.0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K4 {name} window: not bit-equal to its twin (max |err| {errs[name]})")
+    coords = windows["descriptor"]
+    args = (g_tall, coords, x0, y0, row0, h, w)
+    ms = cuda_ms(torch, lambda: sift.sample_window(*args))
+    plain_ms = cuda_ms(torch, lambda: sift._sample_window_torch(*args), n=5, batch=1)
+    px, py = sift._unpack_grads(sift._extract_patches(g_tall, x0, row0))
+    lib_ms = cuda_ms(torch, lambda: sift._gather_grads_patches(px, py, coords, x0, y0, h, w), n=5, batch=1)
+    gather_ms = cuda_ms(torch, lambda: sift._unpack_grads(sift._extract_patches(g_tall, x0, row0)), n=5, batch=1)
+    mm = sift._gather_grads_patches(px, py, coords, x0, y0, h, w)
+    got = sift.sample_window(*args)
+    mm_err = max(float((got[0] - mm[0]).abs().max()), float((got[1] - mm[1]).abs().max()))
+    if not torch.equal(got[2], mm[2]) or mm_err > 2e-6:
+        raise AssertionError(f"K4 against the matmul form: masks equal {torch.equal(got[2], mm[2])}, max err {mm_err}")
+    del px, py, mm
+    # bytes: coordinates and key origins read once, each tall element a tap
+    # touches read once, gx, gy and the mask written once
+    lx, ly, mask = sift._window_frame(coords, x0, y0, h, w)
+    r0, c0 = sift._patch_origin(g_tall.shape[1], g_tall.shape[2], x0, row0)
+    wp = g_tall.shape[2]
+    base = (g_tall.shape[1] * torch.arange(g_tall.shape[0], device=dev)[:, None, None] + r0[..., None]
+            + torch.nan_to_num(torch.floor(ly), nan=0.0).long()) * wp + c0[..., None] \
+        + torch.nan_to_num(torch.floor(lx), nan=0.0).long()
+    taps = int(torch.unique(torch.cat([base + o for o in (0, 1, wp, wp + 1)]).reshape(-1)).numel())
+    pts = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    nbytes = pts * (8 + 9) + x0.numel() * 24 + taps * 4
+    bound_ms, bound_by = bound(nbytes, pts * K4_FLOPS, 0)
+    phase("kernels", f"K4 sift_sample {tuple(coords.shape[:3])} points ({int(mask.sum())} in the masks, {taps} "
+          f"tall elements read): both windows bit-equal to the twin, max |err| against the matmul form "
+          f"{mm_err:.3g}, masks equal; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, matmul form {lib_ms:.4f} ms "
+          f"(+ {gather_ms:.4f} ms for its patch gather per octave), bound {bound_ms:.4f} ms ({bound_by}), share "
+          f"{bound_ms / ms:.3f}")
+    return kernel_entry("sift_sample", "bundlefusion_tpu_torch/csrc/sift_sample.cu",
+                        "bundlefusion_tpu/features/sift.py:277", max(errs.values()), ms, plain_ms, bound_ms, bound_by,
+                        lib_ms, library_ms_is="the matmul form on gathered patches (its patch gather not included)",
+                        patch_gather_ms=gather_ms, err_vs_matmul=mm_err)
+
+
 def check_kernels(torch, T, dev):
     """Phase 3: K1 and K2 against their twins at flagship shapes."""
     from bundlefusion_tpu_torch.io import framewire
@@ -506,7 +734,12 @@ def check_kernels(torch, T, dev):
     k1["deintegrate"] = check_deintegrate(torch, T, dev, depth, c8, poses, seq.camera)
     torch.cuda.empty_cache()
     k2 = check_k2(torch, T, dev, depth[:11].contiguous(), seq.camera)
-    return [k1, k2]
+    del seq, wires, d16, depth, c8, poses
+    torch.cuda.empty_cache()
+    k3 = check_k3(torch, dev)
+    torch.cuda.empty_cache()
+    k4 = check_k4(torch, dev)
+    return [k1, k2, k3, k4]
 
 
 def run_pass(seq, cfg, dev, push_seconds: list | None = None, wrap=None, profile: bool = False):
@@ -568,9 +801,10 @@ def run_slice(torch, T, dev, kernels_out):
             "patch_overflow", "reint_frames", "ring_miss", "blocks_touched", "active_blocks", "lost_chunks")
     for r in recs:
         phase("slice", "runlog " + json.dumps({k: r[k] for k in ("chunk", "chunk_valid", "kf_valid") + ints}))
-    phase("slice", f"kernel launches in the timed pass: {launches} over {len(recs)} chunks")
-    if launches["tsdf_integrate"] != len(recs) or launches["preprocess"] != len(recs):
-        raise AssertionError(f"expected one K1 and one K2 launch per chunk: {launches}")
+    want = expected_launches(cfg, len(recs))
+    phase("slice", f"kernel launches in the timed pass: {launches} over {len(recs)} chunks (K3 from the solves' "
+          f"count {want['assemble']}: {bc_solves(cfg, len(recs))})")
+    check_launches(launches, want, "the timed flagship pass")
     if not all(r["chunk_valid"] for r in recs):
         raise AssertionError("a flagship chunk was invalid")
     if not ate <= 0.005:
@@ -607,19 +841,54 @@ def run_slice(torch, T, dev, kernels_out):
     return seq, cfg, ref
 
 
-def reset_launches() -> None:
+def counted_kernels() -> dict:
+    """The kernel wrappers by the name their entries carry."""
+    from bundlefusion_tpu_torch.features.sift import sample_window
     from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
     from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
+    from bundlefusion_tpu_torch.solver.system import assemble_system
 
-    integrate_blocks.launches = 0
-    fused_preprocess.launches = 0
+    return {"tsdf_integrate": integrate_blocks, "preprocess": fused_preprocess, "assemble": assemble_system,
+            "sift_sample": sample_window}
+
+
+def reset_launches() -> None:
+    for fn in counted_kernels().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict[str, int]:
-    from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
-    from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
+    return {name: fn.launches for name, fn in counted_kernels().items()}
 
-    return {"tsdf_integrate": integrate_blocks.launches, "preprocess": fused_preprocess.launches}
+
+def bc_solves(cfg, chunks: int) -> str:
+    bc = cfg.bundling
+    return (f"{chunks} chunks x 2 local prune rounds x {bc.local_gn_iters} GN iterations + {chunks - 1} global "
+            f"solves x {bc.global_gn_iters}")
+
+
+def expected_launches(cfg, chunks: int) -> dict[str, int]:
+    """Kernel launches of a pass of ``chunks`` chunks: one K1 and one K2 per
+    chunk; K4 twice (orientation, descriptor) per SIFT octave of each chunk;
+    K3 once per GN iteration of the local solve (two prune rounds) and of
+    the global solve (one round, from the second chunk on)."""
+    bc, ac = cfg.bundling, cfg.app
+    h, w, octaves = ac.input_height, ac.input_width, 0
+    for _ in range(bc.sift_octaves):
+        if h < 16 or w < 16:
+            break
+        octaves, h, w = octaves + 1, -(-h // 2), -(-w // 2)
+    return {"tsdf_integrate": chunks, "preprocess": chunks, "sift_sample": 2 * octaves * chunks,
+            "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters}
+
+
+def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
+    """K1, K2 and K4 as ``expected_launches`` counts them; K3 at least once
+    per solve iteration counted there (a relocalization or revalidation
+    solves more)."""
+    exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample")}
+    if exact != {k: want[k] for k in exact} or launches["assemble"] < want["assemble"]:
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3 at least)")
 
 
 def record_launches(kernels_out, path: str, launches: dict[str, int]) -> None:
@@ -799,8 +1068,8 @@ def state_digests(torch, bf, extra=None) -> dict[str, object]:
 def digest_run(torch, T, seq, cfg, dev):
     """One pass over ``seq`` that records, after every stage of every chunk,
     the digests of the whole state (the chunk step's result too, after
-    chunk_local: ``process_chunk``'s return where it ran, the captured
-    program's outputs where a graph replayed). Returns ([(chunk, stage,
+    chunk_local: the program's outputs where it has a graph, else
+    ``process_chunk``'s return). Returns ([(chunk, stage,
     digests)], pipeline). The digests read the device, so such a pass is
     neither timed nor counted."""
     from bundlefusion_tpu_torch.bundle import chunk as chunk_mod
@@ -822,8 +1091,10 @@ def digest_run(torch, T, seq, cfg, dev):
         if name == "upload":  # the upload worker: it runs beside the chunk step
             return
         extra = None
-        if name == "chunk_local":  # a replay runs no Python: read the program's outputs
-            extra = {"chunk_result": last.pop("chunk_result", None) or bf._exe.programs[name].outputs}
+        if name == "chunk_local":  # a graph's results are its program's outputs (a replay runs no Python, a
+            # capture's own return is never computed); an eager stage's are process_chunk's return
+            prog, ran = bf._exe.programs[name], last.pop("chunk_result", None)
+            extra = {"chunk_result": prog.outputs if prog.graph is not None else ran}
         recs.append((bf.chunk_count, name, state_digests(torch, bf, extra)))
 
     bf.timing.stage = stage
@@ -1221,6 +1492,13 @@ def run_multiseq(torch, T, dev, kernels_out, ref) -> None:
         peak = max(p["peak_gib"] for p in timed if p["mode"] == mode)
         phase("multiseq", f"{mode} ({smi}): {fps} fps over both sequences (interleaved {'/'.join(MULTISEQ_ORDER)}), "
               f"median {statistics.median(fps):.3f}; peak memory {peak:.3f} GiB")
+    # a reused executable's state is reset in place: no second state beside it
+    reused_peak = max(p["peak_gib"] for p in timed if p["mode"] == "graphed")
+    phase("multiseq", f"peak memory, graphed: {reused_peak:.3f} GiB on reused shard executables against "
+          f"{first['peak_gib']:.3f} GiB on fresh ones")
+    if reused_peak > first["peak_gib"] + 0.05:
+        raise AssertionError(f"reused shard executables peak at {reused_peak:.3f} GiB, fresh ones at "
+                             f"{first['peak_gib']:.3f} GiB")
     phase("multiseq", f"replays per shard and stage, graphed: {[{k: v['replays'] for k, v in st.items()} for st in timed[0]['stats']]}; "
           f"{len(timed)} runs' state digests ({len(first['digests'][0])} fields per shard), poses and validity "
           f"bit-equal to the first run's; 0 host syncs and {launches} launches in each")
@@ -1792,6 +2070,9 @@ def short_kernel(name: str) -> str:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the port's kernels by the name of their __global__ function
+OUR_KERNELS = {"tsdf_fuse_kernel": "tsdf_integrate", "preprocess_kernel": "preprocess",
+               "assemble_kernel": "assemble", "sift_sample_kernel": "sift_sample"}
 # the host's calls that put work on the device: a kernel launch, a whole
 # CUDA graph's launch, an asynchronous copy or fill
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
@@ -1856,10 +2137,18 @@ def summarize_trace(events: list, span: str, frames: int) -> dict:
         ops = [sp for sp in by_tid.get(tid, []) if not sp[2].startswith(("cuda", "cu"))]
         op_of.update(innermost_spans(ops, points))
     groups: dict = {}
+    by_op: dict = {}  # device ms by the host op that launched it (a graph's kernels: its stage's span)
+    ours: dict = {}  # the port's own kernels by the op that launched them: [ms, count]
     for e in dev:
         if e["cat"] == "kernel":
             op = op_of.get(e.get("args", {}).get("correlation"), "(launch not traced)")
-            key = f"{op} | {short_kernel(e['name'])}"
+            name = short_kernel(e["name"])
+            key = f"{op} | {name}"
+            by_op[op] = by_op.get(op, 0.0) + float(e["dur"]) / 1e3
+            if name.split("::")[-1] in OUR_KERNELS:
+                o = ours.setdefault(f"{OUR_KERNELS[name.split('::')[-1]]} in {op}", [0.0, 0])
+                o[0] += float(e["dur"]) / 1e3
+                o[1] += 1
         else:
             key = e["name"]
         g = groups.setdefault(key, [0.0, 0])
@@ -1910,6 +2199,8 @@ def summarize_trace(events: list, span: str, frames: int) -> dict:
         host_launch_calls=calls, host_launch_calls_per_frame=sum(calls.values()) / frames,
         top=[dict(op=k, ms=v[0] / 1e3, count=v[1], share=v[0] / total) for k, v in top], gaps=gap_rows,
         threads=len(by_tid), idle_by_stage=dict(sorted(idle_by_stage.items(), key=lambda kv: -kv[1])),
+        device_ms_by_op=dict(sorted(((k, round(v, 3)) for k, v in by_op.items()), key=lambda kv: -kv[1])[:10]),
+        our_kernels={k: dict(ms=round(v[0], 3), count=v[1]) for k, v in ours.items()},
     )
 
 
@@ -1985,14 +2276,44 @@ def device_profile(torch, seq, cfg, dev) -> dict:
     return summary
 
 
+def verify_sampling(torch, dev, cfg) -> list:
+    """``filters.dense_verify``'s bilinear sampling (``ops/preprocess.py::
+    bilinear_sample_matmul``, the tent-weight matmul form, still on the main
+    path) at the flagship's call shapes, on random cache planes: per call
+    and per chunk, against the gather form on the same inputs. Calls per
+    chunk: the chunk's 55 pairs both ways and the 10 consecutive pairs in
+    chunk_local, all 128 keyframe slots both ways in graph_step."""
+    from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.ops import preprocess as pp
+
+    bc = cfg.bundling
+    h, w = bc.cache_height, bc.cache_width
+    rng = np.random.default_rng(9)
+    rows = []
+    for stage, lead, calls in (("chunk_local", bc.chunk_size * (bc.chunk_size - 1) // 2, 2),
+                               ("chunk_local", bc.chunk_size - 1, 1), ("graph_step", bc.max_num_images, 2)):
+        img = torch.as_tensor(rng.random((lead, h, w, 5), dtype=np.float32), device=dev)
+        uv = torch.as_tensor(np.stack([rng.uniform(-2, w + 1, (lead, h * w)), rng.uniform(-2, h + 1, (lead, h * w))],
+                                      -1).astype(np.float32), device=dev)
+        mm = cuda_ms(torch, lambda: pp.bilinear_sample_matmul(img, uv), n=5, batch=1)
+        ga = cuda_ms(torch, lambda: pp.bilinear_sample_gather(img, uv), n=5, batch=1)
+        rows.append(dict(stage=stage, pairs=lead, calls_per_chunk=calls, matmul_ms=mm, gather_ms=ga))
+        phase("bench", f"dense_verify's sampling ({bench.device_line(dev)}), {stage}, {lead} pairs at {w}x{h}, "
+              f"{calls} call(s) per chunk: matmul form {mm:.3f} ms per call, gather form {ga:.3f} ms")
+        del img, uv
+    return rows
+
+
 def run_bench(torch, T, dev, kernels_out, seq) -> None:
     """Phase 14: in this process, after an untraced warm pass (it captures
     the chunk step's graphs), two flagship passes of the bench's
     ``run_pass``: one with the device's activity alone traced (the busy
     share near the unprofiled rate, and one K1 and one K2 launch per
     chunk), one under the full profiler (launches per frame, the top device
-    operations, the idle gaps and the host at each). Then the port's bench,
-    ``python -m bundlefusion_tpu_torch.bench``, at bench.py's two sizes in
+    operations, the idle gaps and the host at each; device time by stage
+    and the port's kernels by stage), and the dense verification's sampling
+    timed alone. Then the port's bench, ``python -m
+    bundlefusion_tpu_torch.bench``, at bench.py's two sizes in
     subprocesses."""
     from bundlefusion_tpu_torch import bench
     from bundlefusion_tpu_torch.bundle import pipeline as pipe
@@ -2030,6 +2351,9 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
         phase("bench", f"  idle gap {i + 1}: {g['ms']:.3f} ms at +{g['at_ms']:.1f} ms; host: {json.dumps(g['host'])}")
     idle = {k: round(v, 2) for k, v in full["idle_by_stage"].items()}
     phase("bench", f"  idle ms by the stage open on the worker threads: {json.dumps(idle)}")
+    phase("bench", f"  device ms by the host op that launched the kernels (a graph's: its stage): "
+          f"{json.dumps(full['device_ms_by_op'])}; the port's kernels (ms, count): {json.dumps(full['our_kernels'])}")
+    full["dense_verify_sampling"] = verify_sampling(torch, dev, cfg)
 
     pipe._EXECUTABLES.clear()  # the card's memory is the subprocesses'
     torch.cuda.empty_cache()
@@ -2071,6 +2395,33 @@ def graph_pass(torch, seq, cfg, dev, mode: str, watch: bool = False) -> dict:
                means={k: v["mean_ms"] for k, v in bf.timing.summary().items()})
     del bf, out
     return rec
+
+
+def program_outputs_survive(torch, graphs, dev) -> dict:
+    """Two programs of one executable (``graphs`` is a ``utils/graphs.py``
+    module): ``first``, captured first, keeps a temporary of 2^20 floats
+    that its capture frees into the shared pool; ``second``, captured after
+    it, returns 2^20 floats. Replay ``second``, then ``first``, then read
+    ``second``'s outputs: they must still hold its values. (Where a graph's
+    outputs live in the pool, ``second``'s take the freed temporary's
+    storage and ``first``'s replay overwrites them.)"""
+    exe = graphs.Executable(dev, None)
+    n = 1 << 20
+    with torch.cuda.stream(exe.stream):
+        x = torch.zeros(n, device=dev)
+        sink = torch.zeros(1, device=dev)
+
+        def first(x, sink):
+            sink.copy_((x + 7.0)[:1])
+
+        first_p, second_p = exe.program("first", first), exe.program("second", lambda x: x + 5.0)
+        first_p(x, sink)
+        out = second_p(x)
+        second_p(x)
+        first_p(x, sink)
+    torch.cuda.synchronize()
+    return dict(survived=bool(torch.all(out == 5.0)), replays=second_p.replays + first_p.replays,
+                in_pool_values=sorted(set(out[:: n // 8].tolist())))
 
 
 def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
@@ -2119,12 +2470,11 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
         diff = sorted(k for k in ref["digests"] if ref["digests"][k] != p["digests"].get(k))
         if diff or not np.array_equal(ref["poses"], p["poses"]) or not np.array_equal(ref["valid"], p["valid"]):
             raise AssertionError(f"a {p['mode']} pass differs from the first graphed pass: {diff[:8]}")
-        if p["launches"] != {"tsdf_integrate": chunks, "preprocess": chunks}:
-            raise AssertionError(f"{p['mode']}: expected one K1 and one K2 launch per chunk: {p['launches']}")
+        check_launches(p["launches"], expected_launches(cfg, chunks), f"{p['mode']} pass")
         if p["chunks"] != chunks or not all(p["valid_chunks"]) or not p["ate"] <= 0.005:
             raise AssertionError(f"{p['mode']}: chunks valid {p['valid_chunks']}, ATE {p['ate'] * 100:.4f} cm")
     phase("graphs", f"{len(passes)} passes ({sum(p['mode'] == 'graphed' for p in passes)} graphed): state digests "
-          f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in each")
+          f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in each, K3 and K4 as the solves and SIFT octaves count them")
     want = {k: n for k, n in bench.expected_replays(chunks, cfg).items() if n}
     first_replays = {k: v["replays"] for k, v in first["stats"].items()}
     if first_replays != {k: n - 1 for k, n in want.items()} or not all(v["captured"] for v in first["stats"].values()):
@@ -2140,6 +2490,11 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
     if watched["syncs"]:
         raise AssertionError(f"readbacks in the graphed steady state: {by_site(watched['syncs'])}")
     record_launches(kernels_out, "graphs", watched["launches"])
+
+    alias = program_outputs_survive(torch, graphs, dev)
+    phase("graphs", f"a program's outputs after another program captured before it replays: {alias}")
+    if not alias["survived"] or alias["replays"] != 2:
+        raise AssertionError(f"a program's outputs were overwritten by another program's replay: {alias}")
 
     # the device-only trace each way (phase 14's, on this phase's executable)
     busy = {"graphed": device_busy(torch, seq, cfg, dev)}

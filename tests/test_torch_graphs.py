@@ -11,7 +11,8 @@ are held bit-equal by ``chip_smoke.py``'s phase "graphs").
 * stable addresses: no state tensor, step input, static wire buffer or
   carry moves during chunks 0-3 (a graph addresses them);
 * reuse: a pipeline on a reused executable gives bit for bit what a fresh
-  one gives (over chunks 0 and 1: chunk 0's step and a steady one);
+  one gives (over chunks 0 and 1: chunk 0's step and a steady one); the
+  in-place reset leaves every state tensor as a fresh executable's;
 * ``disable_graphs()`` nests and restores; a replay on inputs at other
   addresses raises.
 
@@ -199,6 +200,27 @@ def test_reused_executable_gives_the_same_result(recorded, reused, seq):
     # a second live pipeline of the same configuration gets its own
     other = tpipe.BundleFusion(seq.camera, _cfg(), anchor_pose=seq.poses[0], device="cpu")
     assert other._exe is not bf._exe
+
+
+def test_reset_state_equals_a_fresh_one(seq):
+    """A reused executable's reset (in place, nothing of the state's size
+    allocated) leaves every tensor of the fusion state and the step inputs
+    as a fresh executable's, with the new anchor; the fresh state's anchor
+    is a copy, so the reset does not write the caller's array."""
+    cfg, anchor = _cfg(), seq.poses[0].copy()
+    bf = _pipeline(seq)
+    st, step = bf.state, bf._step
+    fresh = tpipe.make_fusion_state(cfg, bf.int_cam, tuple(bf.state.hist_c8.shape[1:3]), anchor, "cpu")
+    ptrs = [t.data_ptr() for t in graphs.tensors(st)]
+    for t in graphs.tensors((st, step)):
+        t.fill_(True) if t.dtype == torch.bool else t.fill_(3)
+    tpipe.reset_fusion_state(st, anchor)
+    tpipe.reset_step(step)
+    assert [t.data_ptr() for t in graphs.tensors(st)] == ptrs
+    want = graphs.tensors((fresh, tpipe.step_inputs(0, bf.S, bf.chunk_frames, "cpu")))
+    for got, w in zip(graphs.tensors((st, step)), want, strict=True):
+        assert torch.equal(got, w)
+    np.testing.assert_array_equal(anchor, seq.poses[0])
 
 
 def test_disable_graphs_nests_and_restores():

@@ -1,7 +1,9 @@
-"""The CUDA kernels against their plain PyTorch twins, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card, and the
+CUDA graphs' output storage.
 
 These tests need an NVIDIA card and skip elsewhere. They import neither JAX
-nor the JAX package, so they run on a machine without JAX:
+nor the JAX package, so they run on a machine without JAX (from the repo
+root, whose ``chip_smoke.py`` makes the K3 and K4 inputs):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -13,10 +15,14 @@ import pytest
 import torch
 
 from bundlefusion_tpu_torch.config import tiny_test_config
+from bundlefusion_tpu_torch.features import sift
 from bundlefusion_tpu_torch.fusion import blocks, tsdf
 from bundlefusion_tpu_torch.io.framewire import frame_to_wire2
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.ops import preprocess as pp
+from bundlefusion_tpu_torch.solver import system
+from bundlefusion_tpu_torch.utils import graphs
+from chip_smoke import assembly_inputs, program_outputs_survive, sift_inputs
 
 pytestmark = pytest.mark.cuda
 APP = tiny_test_config().app
@@ -115,6 +121,100 @@ def test_k2_kernel_matches_twin(dev, frames, depths, which, radius, geometry):
         assert (g is None and w is None) if not geometry else torch.equal(g, w)
 
 
+# K3 at a small shape and at the flagship's: the global solve (n = 128,
+# 16,384 slots; with the 4,096 dense-pair slots), the local solve (n = 11,
+# 1,024 slots + 55 dense pairs) and a sharded partial (damping 0)
+K3_CASES = {
+    "small": (lambda: assembly_inputs(10, 8, 300, 6, 40, 0.6), 1e-6),
+    "global": (lambda: assembly_inputs(11, 128, 16384, 60, 400, 0.7), 1e-6),
+    "global_dense": (lambda: assembly_inputs(12, 128, 16384, 60, 400, 0.7, dense=4096, dense_live=21, idx64=True),
+                     1e-6),
+    "local": (lambda: assembly_inputs(13, 11, 1024, 11, 60, 0.9, dense=55, dense_live=50, idx64=True), 1e-6),
+    "partial": (lambda: assembly_inputs(14, 128, 8192, 60, 400, 0.7), 0.0),
+}
+
+
+def _k3_args(dev, case):
+    make, damping = K3_CASES[case]
+    pa, pb, JtJ, Jtr, free = (torch.as_tensor(a, device=dev) for a in make())
+    return (free.shape[0], pa, pb, JtJ, Jtr, free, damping)
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_k3_kernel_matches_twin(dev, case):
+    args = _k3_args(dev, case)
+    launches = system.assemble_system.launches
+    H, b = system.assemble_system(*args)
+    Ht, bt = system._assemble_system_torch(*args)
+    torch.cuda.synchronize()
+    assert system.assemble_system.launches == launches + 1
+    assert torch.equal(H, Ht) and torch.equal(b, bt)
+    assert torch.equal(torch.signbit(H), torch.signbit(Ht)) and torch.equal(torch.signbit(b), torch.signbit(bt))
+
+
+def test_k3_propagates_nan(dev):
+    """A NaN in an empty slot's block (cell (0, 0)) and in a live slot's Jtr
+    reaches H and b as in the twin."""
+    pa, pb, JtJ, Jtr, free = assembly_inputs(15, 8, 300, 6, 40, 0.6)
+    JtJ[-1, 2, 3] = np.nan
+    Jtr[5, 7] = np.nan
+    args = (8, *(torch.as_tensor(a, device=dev) for a in (pa, pb, JtJ, Jtr, free)), 1e-6)
+    H, b = system.assemble_system(*args)
+    Ht, bt = system._assemble_system_torch(*args)
+    assert torch.isnan(H).any() and torch.isnan(b).any()
+    np.testing.assert_array_equal(H.cpu().numpy(), Ht.cpu().numpy())
+    np.testing.assert_array_equal(b.cpu().numpy(), bt.cpu().numpy())
+
+
+def test_k3_replays_in_a_graph(dev):
+    """Captured in a CUDA graph (static shapes, no host sync), K3 replays
+    twice to the twin's result, and each replay counts one launch."""
+    args = _k3_args(dev, "global")
+    Ht, bt = system._assemble_system_torch(*args)
+    exe = graphs.Executable(dev, None)
+    prog = exe.program("assemble", system.assemble_system)
+    exe.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(exe.stream):
+        H, b = prog(*args)  # eager, then captured
+        launches = system.assemble_system.launches
+        for _ in range(2):
+            H.zero_()
+            prog(*args)
+            torch.cuda.current_stream().synchronize()
+            assert torch.equal(H, Ht) and torch.equal(b, bt)
+    assert prog.replays == 2 and system.assemble_system.launches == launches + 2
+
+
+@pytest.mark.parametrize("window", ["orientation", "descriptor"])
+@pytest.mark.parametrize("shape", ["small", "flagship"])
+def test_k4_kernel_matches_twin(dev, shape, window):
+    """Border keys, patch origins the gather clamps, and a NaN coordinate
+    (NaN samples, False mask) as in the twin."""
+    frames, keys, h, w = (2, 40, 48, 96) if shape == "small" else (11, 512, 480, 640)
+    g_tall, xy, sigma, theta, x0, y0, row0 = (torch.as_tensor(a, device=dev)
+                                               for a in sift_inputs(16, frames, keys, h, w, 4))
+    if window == "orientation":
+        coords = sift._window_coords(xy, sigma, torch.zeros_like(theta), 0.4)
+    else:
+        coords = sift._window_coords(xy, sigma, theta, 0.75)
+    coords[0, 7, 19] = float("nan")
+    launches = sift.sample_window.launches
+    got = sift.sample_window(g_tall, coords, x0, y0, row0, h, w)
+    want = sift._sample_window_torch(g_tall, coords, x0, y0, row0, h, w)
+    torch.cuda.synchronize()
+    assert sift.sample_window.launches == launches + 1
+    assert torch.equal(got[2], want[2]) and not bool(got[2][0, 7, 19])
+    for g, t in zip(got[:2], want[:2]):
+        assert bool(torch.isnan(g[0, 7, 19])) and int(torch.isnan(g).sum()) == 1
+        np.testing.assert_array_equal(g.cpu().numpy(), t.cpu().numpy())
+
+
+def test_program_outputs_survive_other_programs(dev):
+    """A program's graph outputs are not overwritten when a program captured
+    before it replays (they live outside the executable's shared pool)."""
+    assert program_outputs_survive(torch, graphs, dev)["survived"]
+
+
 def test_wrappers_reject_bad_inputs(dev, frames):
     cam, depth, c8, _ = frames
     table, rows = _fuse(dev, frames)
@@ -124,3 +224,12 @@ def test_wrappers_reject_bad_inputs(dev, frames):
         pp.fused_preprocess(depth.double(), cam)
     with pytest.raises(ValueError):
         pp.fused_preprocess(depth, cam, radius=4)
+    n, pa, pb, JtJ, Jtr, free, damping = _k3_args(dev, "small")
+    with pytest.raises(ValueError):
+        system.assemble_system(n, pa, pb, JtJ.double(), Jtr, free, damping)
+    with pytest.raises(ValueError):
+        system.assemble_system(n, pa.float(), pb, JtJ, Jtr, free, damping)
+    g_tall, xy, sigma, theta, x0, y0, row0 = (torch.as_tensor(a, device=dev) for a in sift_inputs(17, 1, 8, 48, 96, 4))
+    coords = sift._window_coords(xy, sigma, theta, 0.75)
+    with pytest.raises(ValueError):
+        sift.sample_window(g_tall, coords, x0.int(), y0, row0, 48, 96)
