@@ -36,9 +36,11 @@ _SIGNATURES = {
     "bf_tsdf_fuse": [_P, _P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P]
     + [_F] * 8 + [_P],
     "bf_preprocess": [_P, _P, _P, _P, _I, _I, _I] + [_F] * 6 + [_I, _P],
-    "bf_assemble": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "bf_assemble": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
+    "bf_assemble_scratch_bytes": [_I, _I],
     "bf_sift_sample": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P],
 }
+_RESTYPES = {"bf_assemble_scratch_bytes": _L}  # every other function returns its cudaError
 
 
 def _nvcc() -> str:
@@ -97,7 +99,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

@@ -34,15 +34,17 @@ def assemble_system(num_images, pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mas
     kernels.require(JtJ_pairs, "JtJ_pairs", torch.float32, (p, 12, 12))
     kernels.require(Jtr_pairs, "Jtr_pairs", torch.float32, (p, 12))
     kernels.require(free_mask, "free_mask", torch.bool, (n,))
-    if JtJ_pairs.data_ptr() % 16:  # the kernel reads the blocks' rows as float4
-        JtJ_pairs = JtJ_pairs.clone()
+    # the kernel reads the blocks and Jtr as float4
+    JtJ_pairs, Jtr_pairs = (x.clone() if x.data_ptr() % 16 else x for x in (JtJ_pairs, Jtr_pairs))
     dev = JtJ_pairs.device
+    lib = kernels.library()
     H = torch.empty((6 * n, 6 * n), dtype=torch.float32, device=dev)
     b = torch.empty(6 * n, dtype=torch.float32, device=dev)
-    err = kernels.library().bf_assemble(
+    scratch = torch.empty(lib.bf_assemble_scratch_bytes(n, p), dtype=torch.uint8, device=dev)
+    err = lib.bf_assemble(
         pairs_a.data_ptr(), pairs_b.data_ptr(), int(pairs_a.dtype == torch.int64), JtJ_pairs.data_ptr(),
-        Jtr_pairs.data_ptr(), free_mask.data_ptr(), H.data_ptr(), b.data_ptr(), n, p, damping, 1e-8,
-        kernels.stream_ptr(dev),
+        Jtr_pairs.data_ptr(), free_mask.data_ptr(), H.data_ptr(), b.data_ptr(), scratch.data_ptr(), n, p, damping,
+        1e-8, kernels.stream_ptr(dev),
     )
     kernels.check(err, "assemble")
     assemble_system.launches += 1

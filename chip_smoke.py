@@ -18,13 +18,19 @@ exits non-zero; there is no CPU fallback):
                 and once with the v1 ring's full-res colour (bit-equal to the
                 twin), and ``tsdf.deintegrate``'s single inverse row; K2 over
                 a chunk's 11 frames with and without the point and normal
-                maps; K3 (the normal-equation assembly) at the global solve's
-                16,384 slots and n = 128 without and with the 4,096
-                dense-pair slots, at the local solve's shape and as a sharded
-                partial (damping 0), slots filled as a global graph fills
-                them (``assembly_inputs``), against its twin (today's
+                maps; K3 (the normal-equation assembly, ``k3_cases``) at the
+                global solve's 16,384 slots and n = 128 (filled by 60
+                keyframes; by 7, as the flagship pass's last solve fills
+                them; with the 4,096 dense-pair slots), at the local solve's
+                shape, as a sharded partial (damping 0), at 262,144 slots and
+                at n = 512, slots filled as a global graph fills them
+                (``assembly_inputs``), against its twin (today's
                 deterministic index_add_ body) and the six index_add_ calls
-                alone; K4 (SIFT's window sampling) at one flagship octave (11
+                alone, each case timed eagerly and in a CUDA graph beside its
+                byte bound and its chain bound (the longest chain of
+                dependent adds), then its edge cases
+                (``assembly_edge_inputs``) bit for bit; K4 (SIFT's window
+                sampling) at one flagship octave (11
                 frames x 512 keys x 256 window points, border keys, clamped
                 patch origins), both windows, against its twin and the matmul
                 form it replaced. Every kernel bit-equal to its twin.
@@ -292,6 +298,37 @@ def cuda_ms(torch, fn, n: int = 20, batch: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, calls: int = 20, n: int = 10) -> float:
+    """Median device time of one call of ``fn`` with no host time in the
+    way: ``calls`` calls captured in one CUDA graph (after a warm eager
+    call), the graph replayed ``n`` times between CUDA events. A kernel
+    shorter than its wrapper's host time (~20 us) is timed by ``cuda_ms``
+    as the host's enqueue rate; here as the card runs it in a captured
+    stage."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def host_ms(fn, n: int = 5) -> float:
     """Median host milliseconds of ``fn`` over ``n`` calls after a warm one."""
     fn()
@@ -497,14 +534,19 @@ def check_k2(torch, T, dev, depth, cam):
 
 
 def assembly_inputs(seed: int, n: int, slots: int, live_images: int, per_pair: int, live_share: float,
-                    dense: int = 0, dense_live: int = 0, pruned: float = 0.1, idx64: bool = False):
+                    dense: int = 0, dense_live: int = 0, pruned: float = 0.1, idx64: bool = False,
+                    interleave: bool = False):
     """Normal-equation blocks for ``assemble_system``, filled as a global
     graph fills its correspondence slots: runs of ``per_pair / 2`` to
     ``per_pair`` consecutive slots per live pair (each new keyframe against
     its predecessor, then loop pairs; either end first) among the first ``live_images``
     keyframes up to ``live_share`` of the slots, a ``pruned`` share of the
     live slots at weight 0, the rest empty at (0, 0) with weight 0 (blocks of
-    exact zeros, -0.0 among them); then ``dense`` dense-pair slots, of which
+    exact zeros, -0.0 among them). With ``interleave`` the live slots are in
+    the order a global graph's compaction leaves them
+    (``bundle/global_graph.py::_append_corrs``): the first slot of every
+    pair, pairs in (pa, pb) order, then the second of every pair, and so
+    on. Then ``dense`` dense-pair slots, of which
     ``dense_live`` are active, the others at (0, 0) with zero blocks. Keyframe
     0 is the gauge and keyframes from ``live_images`` on are not valid.
     Returns numpy (pa, pb, JtJ [P, 12, 12], Jtr [P, 12], free [n])."""
@@ -523,6 +565,13 @@ def assembly_inputs(seed: int, n: int, slots: int, live_images: int, per_pair: i
         pa[cursor:cursor + k], pb[cursor:cursor + k], w[cursor:cursor + k] = a, b, 1.0
         cursor, i = cursor + k, i + 1
     w[:cursor][rng.random(cursor) < pruned] = 0.0
+    if interleave:
+        pid = pa[:cursor] * n + pb[:cursor]
+        order = np.argsort(pid, kind="stable")
+        first = np.r_[True, pid[order][1:] != pid[order][:-1]]
+        rank = np.arange(cursor) - np.maximum.accumulate(np.where(first, np.arange(cursor), 0))
+        final = order[np.lexsort((np.arange(cursor), rank))]
+        pa[:cursor], pb[:cursor], w[:cursor] = pa[:cursor][final], pb[:cursor][final], w[:cursor][final]
     J = rng.standard_normal((slots, 3, 12)).astype(np.float32)
     r = (rng.standard_normal((slots, 3)) * 0.01).astype(np.float32)
     JtJ = np.einsum("kri,krj->kij", J, J * w[:, None, None]).astype(np.float32)
@@ -543,78 +592,182 @@ def assembly_inputs(seed: int, n: int, slots: int, live_images: int, per_pair: i
     return pa, pb, JtJ, Jtr, free
 
 
+K3_EDGE_CASES = ("empty", "one_keyframe", "gauge_negative", "negative_zero", "out_of_range", "nan_empty_slot")
+
+
+def assembly_edge_inputs(case: str, idx64: bool = False):
+    """K3's edge cases at n = 8, 300 slots (``K3_EDGE_CASES``): every slot
+    empty; one keyframe in every slot (pa or pb, the other end any keyframe,
+    itself included); the gauge keyframe's sums of H negative and of b
+    positive (so its gauge-masked b entries are -0.0); every empty slot's
+    values -0.0, and -0.0 entries in live blocks; indices out of [0, n); a
+    NaN in an empty slot at (0, 0). Returns (the inputs, the inputs of the
+    twin): the same arrays, except for out-of-range indices, which the
+    kernel drops and the twin cannot take, so the twin's inputs move them to
+    keyframe 0 with that end's values zeroed."""
+    n, slots = 8, 300
+    rng = np.random.default_rng(100 + K3_EDGE_CASES.index(case))
+    pa, pb, JtJ, Jtr, free = assembly_inputs(17, n, slots, 6, 40, 0.0 if case == "empty" else 0.6, idx64=idx64)
+    empty = ~(JtJ != 0).reshape(slots, -1).any(1)
+    if case == "one_keyframe":
+        _, _, JtJ, Jtr, _ = assembly_inputs(18, n, slots, 6, 40, 1.0, pruned=0.0, idx64=idx64)
+        other = rng.integers(0, n, slots).astype(pa.dtype)
+        side = rng.random(slots) < 0.5
+        pa, pb = np.where(side, 3, other).astype(pa.dtype), np.where(side, other, 3).astype(pa.dtype)
+    elif case == "gauge_negative":
+        touch = (pa == 0) | (pb == 0)
+        JtJ[touch] *= -1.0
+        Jtr[touch] = np.abs(Jtr[touch])
+    elif case == "negative_zero":
+        JtJ[empty], Jtr[empty] = -0.0, -0.0
+        live = np.flatnonzero(~empty)[::3]
+        JtJ[live, 2, :] = -0.0
+        JtJ[live, :, 9] = -0.0
+        Jtr[live, 4] = -0.0
+    elif case == "nan_empty_slot":
+        JtJ[np.flatnonzero(empty)[-1], 8, 2] = np.nan
+    ref = [x.copy() for x in (pa, pb, JtJ, Jtr, free)]
+    if case == "out_of_range":
+        bad_a, bad_b = rng.random(slots) < 0.15, rng.random(slots) < 0.15
+        pa[bad_a] = np.where(rng.random(int(bad_a.sum())) < 0.5, n + 3, -1)
+        pb[bad_b] = np.where(rng.random(int(bad_b.sum())) < 0.5, n, -2)
+        ref[0][bad_a], ref[1][bad_b] = 0, 0
+        ref[2][bad_a, :6, :], ref[2][bad_a, :, :6], ref[3][bad_a, :6] = 0.0, 0.0, 0.0
+        ref[2][bad_b, 6:, :], ref[2][bad_b, :, 6:], ref[3][bad_b, 6:] = 0.0, 0.0, 0.0
+    return (pa, pb, JtJ, Jtr, free), tuple(ref)
+
+
+def k3_cases(bc) -> dict:
+    """K3's cases at the shapes of the bundling configuration ``bc`` (the
+    flagship's): name -> (maker of ``assembly_inputs``' arrays, damping).
+    The global solve's slots at n keyframes, filled by 60 keyframes, as the
+    flagship pass's last solve fills them (7 keyframes; in runs of one pair,
+    and interleaved as there) and with the dense pairs appended; the local solve; a sharded partial (half the global
+    slots, damping 0); and two shapes that a shared-memory flag per slot
+    could not hold: 262,144 slots at n, and the default configuration's 512
+    keyframes with its global and dense-pair slots."""
+    n, slots, nd = bc.max_num_images, bc.max_residuals_global, bc.max_dense_pairs_global
+    return {
+        "global": (lambda: assembly_inputs(1, n, slots, 60, 400, 0.7), 1e-6),
+        # as the flagship pass's last solve holds them: 7 keyframes, 1,344 slots live (corr_cursor), in runs
+        # of one pair, and interleaved as the graph's compaction leaves them
+        "global_7_keyframes": (lambda: assembly_inputs(6, n, slots, 7, 192, 1344 / slots), 1e-6),
+        "global_7_keyframes_interleaved": (lambda: assembly_inputs(6, n, slots, 7, 64, 1344 / slots, interleave=True),
+                                           1e-6),
+        "global_dense": (lambda: assembly_inputs(2, n, slots, 60, 400, 0.7, dense=nd, dense_live=21, idx64=True),
+                         1e-6),
+        "local": (lambda: assembly_inputs(3, bc.chunk_size, bc.max_residuals_local, bc.chunk_size, 60, 0.9,
+                                          dense=55, dense_live=50, idx64=True), 1e-6),
+        "sharded_partial": (lambda: assembly_inputs(4, n, slots // 2, 60, 400, 0.7), 0.0),
+        "slots_262144": (lambda: assembly_inputs(7, n, 262144, 60, 400, 0.7), 1e-6),
+        "n512": (lambda: assembly_inputs(8, 512, slots, 500, 40, 0.7, dense=nd, dense_live=21, idx64=True), 1e-6),
+    }
+
+
+# K3's second bound: its order is fixed (the twin's, for bit-equality), so
+# a cell's non-zero updates are a chain of dependent float adds, each
+# waiting for the last: 4 cycles per add (the FP32 add's dependent-issue
+# latency that published microbenchmarks measure on Volta through Hopper)
+# at the 1.98 GHz boost clock
+FADD_CYCLES, CLOCK_HZ = 4, 1.98e9
+
+
+def k3_longest_chain(torch, n, pa, pb, JtJ, Jtr) -> int:
+    """The most non-zero updates that one entry of H or b receives in the
+    twin's order: H's four passes chain into one sum per cell; b sums the
+    pa side and the pb side apart, then adds them (one add more)."""
+    a, b = pa.long(), pb.long()
+    ok_a, ok_b = (a >= 0) & (a < n), (b >= 0) & (b < n)
+    nz = (JtJ != 0).float()
+    cnt = torch.zeros((n * n, 6, 6), device=JtJ.device)
+    for keep, idx, blk in ((ok_a, a * n + a, nz[:, :6, :6]), (ok_a & ok_b, a * n + b, nz[:, :6, 6:]),
+                           (ok_a & ok_b, b * n + a, nz[:, 6:, :6]), (ok_b, b * n + b, nz[:, 6:, 6:])):
+        cnt.index_add_(0, idx[keep], blk[keep])
+    jz = (Jtr != 0).float()
+    sa = torch.zeros((n, 6), device=JtJ.device).index_add_(0, a[ok_a], jz[ok_a, :6])
+    sb = torch.zeros((n, 6), device=JtJ.device).index_add_(0, b[ok_b], jz[ok_b, 6:])
+    return int(max(float(cnt.max()), float(torch.maximum(sa, sb).max()) + 1))
+
+
 def check_k3(torch, dev):
-    """K3 against its twin (today's deterministic index_add_ body) at the
-    flagship's shapes: the global solve's 16,384 slots at n = 128 without and
-    with the 4,096 dense-pair slots, filled by 60 keyframes and as the
-    flagship pass's last solve fills them, the local solve's 1,024 slots and 55
-    dense pairs at n = 11, and a sharded partial (half the global slots,
-    damping 0). Each bit-equal to the twin; times for the global ones."""
+    """K3 against its twin (today's deterministic index_add_ body) at every
+    case of ``k3_cases``: bit-equal, the sign of zero included; the kernel,
+    the twin and the twin's six index_add_ calls alone timed in each, beside
+    both bounds (bytes, and the longest chain of dependent adds)."""
     from bundlefusion_tpu_torch.solver import system
     from bundlefusion_tpu_torch.utils.tensor_ops import deterministic
 
-    bc = flagship_config().bundling
-    n, slots, nd = bc.max_num_images, bc.max_residuals_global, bc.max_dense_pairs_global
-    cases = {
-        "global": (assembly_inputs(1, n, slots, 60, 400, 0.7), 1e-6),
-        # as the flagship pass's last solve holds them: 7 keyframes, 1,344 slots live (corr_cursor)
-        "global_7_keyframes": (assembly_inputs(6, n, slots, 7, 192, 1344 / slots), 1e-6),
-        "global_dense": (assembly_inputs(2, n, slots, 60, 400, 0.7, dense=nd, dense_live=21, idx64=True), 1e-6),
-        "local": (assembly_inputs(3, bc.chunk_size, bc.max_residuals_local, bc.chunk_size, 60, 0.9,
-                                  dense=55, dense_live=50, idx64=True), 1e-6),
-        "sharded_partial": (assembly_inputs(4, n, slots // 2, 60, 400, 0.7), 0.0),
-    }
     out = {}
-    for name, (arrays, damping) in cases.items():
-        pa, pb, JtJ, Jtr, free = (torch.as_tensor(a, device=dev) for a in arrays)
+    for name, (make, damping) in k3_cases(flagship_config().bundling).items():
+        pa, pb, JtJ, Jtr, free = (torch.as_tensor(a, device=dev) for a in make())
         m = free.shape[0]
         args = (m, pa, pb, JtJ, Jtr, free, damping)
         Hk, bk = system.assemble_system(*args)
         Ht, bt = system._assemble_system_torch(*args)
         torch.cuda.synchronize()
         err = max(float((Hk - Ht).abs().max()), float((bk - bt).abs().max()))
-        if err != 0.0 or not (torch.equal(Hk, Ht) and torch.equal(bk, bt)):
-            raise AssertionError(f"K3 {name}: not bit-equal to its twin (max |err| {err})")
+        signs = torch.equal(torch.signbit(Hk), torch.signbit(Ht)) and torch.equal(torch.signbit(bk), torch.signbit(bt))
+        if err != 0.0 or not (torch.equal(Hk, Ht) and torch.equal(bk, bt) and signs):
+            raise AssertionError(f"K3 {name}: not bit-equal to its twin (max |err| {err}, signs equal {signs})")
+        del Hk, bk, Ht, bt
         # bytes: every block value and index read once, H and b written once;
         # operations: the additions of the non-zero updates (six values each)
         p = JtJ.shape[0]
         nbytes = p * (144 + 12) * 4 + 2 * p * pa.element_size() + m + (36 * m * m + 6 * m) * 4
         blk = JtJ.reshape(p, 2, 6, 2, 6)
         nonzero = int((blk != 0).any(dim=-1).sum()) + int((Jtr != 0).sum())  # rows of updates, b's entries
+        bound_ms, bound_by = bound(nbytes, nonzero * 6, 0)
+        chain = k3_longest_chain(torch, m, pa, pb, JtJ, Jtr)
+        chain_ms = 1e3 * chain * FADD_CYCLES / CLOCK_HZ
+        ms = cuda_ms(torch, lambda: system.assemble_system(*args))
+        gms = graph_ms(torch, lambda: system.assemble_system(*args))
+        plain_ms = cuda_ms(torch, lambda: system._assemble_system_torch(*args), n=5, batch=1)
+
+        def index_adds():  # the twin's six deterministic index_add_ calls alone (no gauge or permute)
+            Hb = torch.zeros((m * m, 6, 6), device=dev)
+            bv = torch.zeros((m, 6), device=dev)
+            a, b = pa.long(), pb.long()
+            with deterministic():
+                for idx, blkv in ((a * m + a, JtJ[:, :6, :6]), (a * m + b, JtJ[:, :6, 6:]),
+                                  (b * m + a, JtJ[:, 6:, :6]), (b * m + b, JtJ[:, 6:, 6:])):
+                    Hb.index_add_(0, idx, blkv)
+                bv.index_add_(0, a, Jtr[:, :6])
+                bv.index_add_(0, b, Jtr[:, 6:])
+
+        lib_ms = cuda_ms(torch, index_adds, n=5, batch=1)
         rec = dict(n=m, slots=p, live_slots=int((JtJ != 0).flatten(1).any(1).sum()), damping=damping,
-                   max_abs_err=err)
-        if name != "local":
-            bound_ms, bound_by = bound(nbytes, nonzero * 6, 0)
-            ms = cuda_ms(torch, lambda: system.assemble_system(*args))
-            plain_ms = cuda_ms(torch, lambda: system._assemble_system_torch(*args), n=5, batch=1)
-
-            def index_adds():  # today's six deterministic index_add_ calls alone (no gauge or permute)
-                Hb = torch.zeros((m * m, 6, 6), device=dev)
-                bv = torch.zeros((m, 6), device=dev)
-                a, b = pa.long(), pb.long()
-                with deterministic():
-                    for idx, blkv in ((a * m + a, JtJ[:, :6, :6]), (a * m + b, JtJ[:, :6, 6:]),
-                                      (b * m + a, JtJ[:, 6:, :6]), (b * m + b, JtJ[:, 6:, 6:])):
-                        Hb.index_add_(0, idx, blkv)
-                    bv.index_add_(0, a, Jtr[:, :6])
-                    bv.index_add_(0, b, Jtr[:, 6:])
-
-            lib_ms = cuda_ms(torch, index_adds, n=5, batch=1)
-            rec.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
-            phase("kernels", f"K3 assemble {name}: n={m}, {p} slots ({rec['live_slots']} with a non-zero block), "
-                  f"damping {damping}; bit-equal to the twin; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
-                  f"the six index_add_ calls {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
-                  f"{bound_ms / ms:.3f}")
-        else:
-            phase("kernels", f"K3 assemble {name}: n={m}, {p} slots ({rec['live_slots']} with a non-zero block); "
-                  f"bit-equal to the twin")
+                   max_abs_err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, longest_chain=chain, bound_chain_ms=chain_ms)
+        phase("kernels", f"K3 assemble {name}: n={m}, {p} slots ({rec['live_slots']} with a non-zero block), "
+              f"damping {damping}; bit-equal to the twin, signs of zero included; kernel {ms:.4f} ms (five eager "
+              f"calls), {gms:.4f} ms in a graph; twin {plain_ms:.4f} ms, the six index_add_ calls {lib_ms:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / gms:.3f} in a graph; longest chain {chain} "
+              f"adds, {chain_ms:.4f} ms at {FADD_CYCLES} cycles each, share {chain_ms / gms:.3f}")
         out[name] = rec
-        del Hk, bk, Ht, bt
+        del pa, pb, JtJ, Jtr, free
+        torch.cuda.empty_cache()
+    edges = []
+    for case in K3_EDGE_CASES:
+        for idx64 in (False, True):
+            arrays, ref = assembly_edge_inputs(case, idx64)
+            m = arrays[4].shape[0]
+            Hk, bk = system.assemble_system(m, *(torch.as_tensor(a, device=dev) for a in arrays), 1e-6)
+            Ht, bt = system._assemble_system_torch(m, *(torch.as_tensor(a, device=dev) for a in ref), 1e-6)
+            for got, want in ((Hk, Ht), (bk, bt)):
+                nan = torch.isnan(want)
+                if not (torch.equal(torch.isnan(got), nan)
+                        and torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))):
+                    raise AssertionError(f"K3 edge case {case} ({'int64' if idx64 else 'int32'}): not bit-equal to "
+                                         "its twin")
+        edges.append(case)
+    phase("kernels", f"K3 edge cases, int32 and int64 indices, bit for bit (NaN where NaN): {', '.join(edges)}")
     g = out["global"]
     return kernel_entry("assemble", "bundlefusion_tpu_torch/csrc/assemble.cu", "bundlefusion_tpu/solver/system.py:24",
                         max(r["max_abs_err"] for r in out.values()), g["ms"], g["plain_ms"], g["bound_ms"],
                         g["bound_by"], g["library_ms"],
-                        library_ms_is="the six deterministic index_add_ calls of the twin, not one call", cases=out)
+                        library_ms_is="the six deterministic index_add_ calls of the twin, not one call",
+                        graph_ms=g["graph_ms"], share_of_bound_in_graph=g["bound_ms"] / g["graph_ms"],
+                        bound_chain_ms=g["bound_chain_ms"], edge_cases=edges, cases=out)
 
 
 # K4 (SIFT window sampling): operations of one window point (offsets,
@@ -2072,7 +2225,8 @@ def short_kernel(name: str) -> str:
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the port's kernels by the name of their __global__ function
 OUR_KERNELS = {"tsdf_fuse_kernel": "tsdf_integrate", "preprocess_kernel": "preprocess",
-               "assemble_kernel": "assemble", "sift_sample_kernel": "sift_sample"}
+               "assemble_flags_kernel": "assemble pass 1", "assemble_rows_kernel": "assemble pass 2",
+               "sift_sample_kernel": "sift_sample"}
 # the host's calls that put work on the device: a kernel launch, a whole
 # CUDA graph's launch, an asynchronous copy or fill
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",

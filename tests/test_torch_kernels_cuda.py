@@ -22,7 +22,7 @@ from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.ops import preprocess as pp
 from bundlefusion_tpu_torch.solver import system
 from bundlefusion_tpu_torch.utils import graphs
-from chip_smoke import assembly_inputs, program_outputs_survive, sift_inputs
+from chip_smoke import K3_EDGE_CASES, assembly_edge_inputs, assembly_inputs, program_outputs_survive, sift_inputs
 
 pytestmark = pytest.mark.cuda
 APP = tiny_test_config().app
@@ -123,7 +123,11 @@ def test_k2_kernel_matches_twin(dev, frames, depths, which, radius, geometry):
 
 # K3 at a small shape and at the flagship's: the global solve (n = 128,
 # 16,384 slots; with the 4,096 dense-pair slots), the local solve (n = 11,
-# 1,024 slots + 55 dense pairs) and a sharded partial (damping 0)
+# 1,024 slots + 55 dense pairs), a sharded partial (damping 0), the global
+# solve's pairs interleaved as the graph's compaction leaves them; shapes
+# that a shared-memory flag per slot could not launch (262,144 slots; the
+# default configuration's 512 keyframes, whose sums take half a block row
+# per CTA); and 2,048 keyframes (a third of a block row per CTA)
 K3_CASES = {
     "small": (lambda: assembly_inputs(10, 8, 300, 6, 40, 0.6), 1e-6),
     "global": (lambda: assembly_inputs(11, 128, 16384, 60, 400, 0.7), 1e-6),
@@ -131,6 +135,10 @@ K3_CASES = {
                      1e-6),
     "local": (lambda: assembly_inputs(13, 11, 1024, 11, 60, 0.9, dense=55, dense_live=50, idx64=True), 1e-6),
     "partial": (lambda: assembly_inputs(14, 128, 8192, 60, 400, 0.7), 0.0),
+    "interleaved": (lambda: assembly_inputs(16, 128, 16384, 7, 64, 0.08, interleave=True), 1e-6),
+    "slots_262144": (lambda: assembly_inputs(7, 128, 262144, 60, 400, 0.7), 1e-6),
+    "n512": (lambda: assembly_inputs(8, 512, 16384, 500, 40, 0.7, dense=4096, dense_live=21, idx64=True), 1e-6),
+    "n2048": (lambda: assembly_inputs(9, 2048, 16384, 2000, 16, 0.7), 1e-6),
 }
 
 
@@ -150,6 +158,25 @@ def test_k3_kernel_matches_twin(dev, case):
     assert system.assemble_system.launches == launches + 1
     assert torch.equal(H, Ht) and torch.equal(b, bt)
     assert torch.equal(torch.signbit(H), torch.signbit(Ht)) and torch.equal(torch.signbit(b), torch.signbit(bt))
+
+
+@pytest.mark.parametrize("idx64", [False, True], ids=["int32", "int64"])
+@pytest.mark.parametrize("case", K3_EDGE_CASES)
+def test_k3_edge_cases(dev, case, idx64):
+    """Every slot empty, one keyframe in every slot, a gauge row's signed
+    zeros, -0.0 blocks, out-of-range indices (dropped: the twin runs on
+    them moved to keyframe 0 with that end's values zeroed), a NaN in an
+    empty slot: bit for bit, NaN where NaN."""
+    arrays, ref = assembly_edge_inputs(case, idx64)
+    n = arrays[4].shape[0]
+    H, b = system.assemble_system(n, *(torch.as_tensor(a, device=dev) for a in arrays), 1e-6)
+    Ht, bt = system._assemble_system_torch(n, *(torch.as_tensor(a, device=dev) for a in ref), 1e-6)
+    for got, want in ((H, Ht), (b, bt)):
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+    if case == "gauge_negative":
+        assert bool(torch.signbit(b[:6]).all()) and bool((b[:6] == 0).all())
 
 
 def test_k3_propagates_nan(dev):
