@@ -9,6 +9,12 @@
 
 Everything is batched over a leading pair axis; a pair that fails has its
 matches zeroed (valid=False).
+
+The dense verification reduces each (pair, direction) to four sums in
+:func:`dense_verify_sums`: kernel K5 (``csrc/dense_verify.cu``) on CUDA
+tensors, its twin :func:`_dense_verify_torch` on CPU tensors. The JAX
+package's matmul-form sampling (``ops/preprocess.py::
+bilinear_sample_matmul``) is not on this path.
 """
 
 from __future__ import annotations
@@ -18,10 +24,11 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import kernels
 from ..config import BundlingConfig
 from ..geometry import se3
 from ..geometry.camera import CameraModel, project
-from ..ops.preprocess import FrameCache, bilinear_sample_matmul
+from ..ops.preprocess import FrameCache, bilinear_sample_gather
 from ..utils.tensor_ops import top_k
 from .matcher import PairMatches
 
@@ -96,50 +103,163 @@ def surface_area_filter(pa, pb, inliers, cfg: BundlingConfig) -> torch.Tensor:
     return (spread(pa) > cfg.surf_area_pca_thresh) & (spread(pb) > cfg.surf_area_pca_thresh)
 
 
-def dense_verify(cache_a: FrameCache, cache_b: FrameCache, T_ba, cam: CameraModel, cfg: BundlingConfig) -> VerifyStats:
-    """Project frame a's cached points into frame b and measure agreement;
-    caches and T_ba carry a leading batch axis."""
+# csrc/dense_verify.cu's CTA: thread t sums pixels t, t + _THREADS, ... in
+# order, then each warp's 32 sums and the warps' sums are halved in turn
+_THREADS = 512
+_WARPS = _THREADS // 32
+
+
+def _sum_in_kernel_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum [..., D] over D in K5's order: a running sum per thread over its
+    strided pixels (from +0.0), then a halving tree over each warp's 32
+    lanes (lane i + lane i + off, off = 16, ..., 1), then one over the
+    warps' sums (off = _WARPS / 2, ..., 1)."""
+    d = x.shape[-1]
+    rows = -(-d // _THREADS)
+    x = torch.nn.functional.pad(x, (0, rows * _THREADS - d)).reshape(*x.shape[:-1], rows, _THREADS)
+    acc = torch.zeros_like(x[..., 0, :])
+    for r in range(rows):
+        acc = acc + x[..., r, :]
+    acc = acc.reshape(*acc.shape[:-1], _WARPS, 32)
+    for width in (32, _WARPS):
+        off = width // 2
+        while off:
+            acc = acc[..., :off] + acc[..., off:2 * off]
+            off //= 2
+        acc = acc[..., 0]
+    return acc
+
+
+def _verify_terms(cache_a: FrameCache, cache_b: FrameCache, T_ba, cam: CameraModel, cfg: BundlingConfig):
+    """Per pixel of frame a, [..., D]: (valid, projected, agreeing, depth
+    error), as K5 computes them: the transform as ((r0 x + r1 y) + r2 z) +
+    t (``se3.transform_points`` is an einsum), then ``project`` and
+    ``bilinear_sample_gather`` on frame b's five channels, the normal
+    normalised by max(sqrt((x x + y y) + z z), 1e-9)."""
     lead = cache_a.depth.shape[:-2]
-    pts_a = cache_a.points.reshape(*lead, -1, 3)
-    valid_a = cache_a.depth.reshape(*lead, -1) > 0.0
-    pts_in_b = se3.transform_points(T_ba, pts_a)
-    uv, proj_ok = project(cam, pts_in_b)
-    stack_b = torch.cat(
-        [cache_b.depth[..., None], cache_b.normals, cache_b.intensity[..., None]], dim=-1
-    )
-    samp, inb = bilinear_sample_matmul(stack_b, uv)
-    depth_b = samp[..., 0]
-    normal_b = samp[..., 1:4]
-    inten_b = samp[..., 4]
-    proj_ok = proj_ok & inb & valid_a & (depth_b > 0.0)
+    h, w = cache_a.depth.shape[-2:]
+    d = h * w
+    px, py, pz = cache_a.points.reshape(*lead, d, 3).unbind(-1)
+    nx, ny, nz = cache_a.normals.reshape(*lead, d, 3).unbind(-1)
+    valid_a = cache_a.depth.reshape(*lead, d) > 0.0
+    R = [[T_ba[..., i, j, None] for j in range(4)] for i in range(3)]
 
-    dist = torch.abs(pts_in_b[..., 2] - depth_b)
-    n_a = se3.rotate_vectors(T_ba, cache_a.normals.reshape(*lead, -1, 3))
-    nb_norm = normal_b / torch.clamp(torch.linalg.vector_norm(normal_b, dim=-1, keepdim=True), min=1e-9)
-    ndot = torch.sum(n_a * nb_norm, dim=-1)
-    dint = torch.abs(cache_a.intensity.reshape(*lead, -1) - inten_b)
+    def rot(i, a, b, c):
+        return (R[i][0] * a + R[i][1] * b) + R[i][2] * c
 
+    x, y, z = (rot(i, px, py, pz) + R[i][3] for i in range(3))
+    uv, ok = project(cam, torch.stack([x, y, z], dim=-1))
+    stack_b = torch.cat([cache_b.depth[..., None], cache_b.normals, cache_b.intensity[..., None]], dim=-1)
+    samp, inb = bilinear_sample_gather(stack_b.reshape(-1, h, w, 5), uv.reshape(-1, d, 2))
+    depth_b, nbx, nby, nbz, inten_b = samp.reshape(*lead, d, 5).unbind(-1)
+    proj_ok = valid_a & ok & inb.reshape(*lead, d) & (depth_b > 0.0)
+
+    dist = torch.abs(z - depth_b)
+    nrm = torch.clamp(torch.sqrt((nbx * nbx + nby * nby) + nbz * nbz), min=1e-9)
+    ndot = (rot(0, nx, ny, nz) * (nbx / nrm) + rot(1, nx, ny, nz) * (nby / nrm)) + rot(2, nx, ny, nz) * (nbz / nrm)
+    dint = torch.abs(cache_a.intensity.reshape(*lead, d) - inten_b)
     agree = (
         proj_ok
         & (dist < cfg.verify_dist_thresh)
         & (ndot > cfg.verify_normal_thresh)
         & (dint < cfg.verify_color_thresh)
     )
-    n_valid = torch.clamp(torch.sum(valid_a, dim=-1), min=1)
-    n_proj = torch.sum(proj_ok, dim=-1)
-    n_agree = torch.sum(agree, dim=-1)
+    return valid_a, proj_ok, agree, dist
+
+
+def _dense_verify_torch(cache_a: FrameCache, cache_b: FrameCache, T_ba, cam: CameraModel,
+                        cfg: BundlingConfig) -> torch.Tensor:
+    """K5's twin for one direction: [..., 4] float32 (valid, projected and
+    agreeing pixels of frame a, the projected pixels' depth-error sum in
+    K5's order)."""
+    valid_a, proj_ok, agree, dist = _verify_terms(cache_a, cache_b, T_ba, cam, cfg)
+    counts = [torch.sum(m, dim=-1).to(torch.float32) for m in (valid_a, proj_ok, agree)]
+    return torch.stack([*counts, _sum_in_kernel_order(torch.where(proj_ok, dist, 0.0))], dim=-1)
+
+
+def _kernel_side(cache: FrameCache, pairs: int, h: int, w: int):
+    """One side's (depth, points, normals, intensity, pixel stride per
+    pair) as K5 reads them: each frame contiguous, all four fields at one
+    pair stride (0 for a frame broadcast to every pair); a side that is not
+    so laid out is copied."""
+    fields = [cache.depth.reshape(pairs, h, w), cache.points.reshape(pairs, h, w, 3),
+              cache.normals.reshape(pairs, h, w, 3), cache.intensity.reshape(pairs, h, w)]
+    stride = fields[0].stride(0) if pairs > 1 else 0
+
+    def fits(t, c):
+        inner = (w, 1) if c == 1 else (3 * w, 3, 1)
+        return t.stride()[1:] == inner and (pairs == 1 or t.stride(0) == c * stride)
+
+    if not all(fits(t, c) for t, c in zip(fields, (1, 3, 3, 1))):
+        fields, stride = [t.contiguous() for t in fields], h * w
+    for name, t in zip(("depth", "points", "normals", "intensity"), fields):
+        kernels.require(t, name, torch.float32, contiguous=False)
+    return (*fields, stride)
+
+
+@kernels.counted
+def dense_verify_sums(cache_a: FrameCache, cache_b: FrameCache, transforms: tuple, cam: CameraModel,
+                      cfg: BundlingConfig) -> torch.Tensor:
+    """Kernel K5: the dense verification of frame pairs (caches with
+    leading pair axes ``...``) reduced to [len(transforms), ..., 4] float32:
+    valid, projected and agreeing pixels and the depth-error sum, for a -> b
+    under ``transforms[0]`` and, given a second transform, for b -> a under
+    ``transforms[1]``; both directions in one launch. CUDA tensors launch
+    the kernel (bit-equal to the twin on the card); CPU tensors run the
+    twin, :func:`_dense_verify_torch`."""
+    sides = ((cache_a, cache_b), (cache_b, cache_a))[: len(transforms)]
+    if not cache_a.depth.is_cuda:
+        return torch.stack([_dense_verify_torch(a, b, T, cam, cfg) for (a, b), T in zip(sides, transforms)])
+    lead = cache_a.depth.shape[:-2]
+    h, w = cache_a.depth.shape[-2:]
+    if cache_b.depth.shape != cache_a.depth.shape or not 1 <= len(transforms) <= 2:
+        raise ValueError(f"dense_verify_sums: caches {tuple(cache_a.depth.shape)} and "
+                         f"{tuple(cache_b.depth.shape)}, {len(transforms)} transforms")
+    pairs = math.prod(lead)
+    out = torch.empty((len(transforms), pairs, 4), dtype=torch.float32, device=cache_a.depth.device)
+    if pairs == 0:
+        return out.reshape(len(transforms), *lead, 4)
+    a, b = _kernel_side(cache_a, pairs, h, w), _kernel_side(cache_b, pairs, h, w)
+    ts = [T.reshape(pairs, 16).contiguous() for T in transforms]
+    for t in ts:
+        kernels.require(t, "transform", torch.float32, (pairs, 16))
+    err = kernels.library().bf_dense_verify(
+        *(x if isinstance(x, int) else x.data_ptr() for x in (*a, *b)), ts[0].data_ptr(),
+        ts[-1].data_ptr() if len(ts) == 2 else None, out.data_ptr(), pairs, len(ts), h, w,
+        cam.fx, cam.fy, cam.cx, cam.cy, cam.width - 1.0, cam.height - 1.0, w - 1.0 + 1e-4, h - 1.0 + 1e-4,
+        w - 1.001, h - 1.001, cfg.verify_dist_thresh, cfg.verify_normal_thresh, cfg.verify_color_thresh,
+        kernels.stream_ptr(cache_a.depth.device),
+    )
+    kernels.check(err, "dense_verify")
+    dense_verify_sums.launches += 1
+    return out.reshape(len(transforms), *lead, 4)
+
+
+def _verify_stats(sums: torch.Tensor) -> VerifyStats:
+    """The four ratios from [..., 4] sums, as the JAX package divides its
+    counts (each at least 1 where it divides)."""
+    n_valid = torch.clamp(sums[..., 0], min=1.0)
+    n_proj = torch.clamp(sums[..., 1], min=1.0)
     return VerifyStats(
-        ok_frac=n_agree / torch.clamp(n_proj, min=1),
-        overlap=n_proj / n_valid,
-        err=torch.sum(torch.where(proj_ok, dist, 0.0), dim=-1) / torch.clamp(n_proj, min=1),
-        corr=n_agree / n_valid,
+        ok_frac=sums[..., 2] / n_proj,
+        overlap=sums[..., 1] / n_valid,
+        err=sums[..., 3] / n_proj,
+        corr=sums[..., 2] / n_valid,
     )
 
 
+def dense_verify(cache_a: FrameCache, cache_b: FrameCache, T_ba, cam: CameraModel, cfg: BundlingConfig) -> VerifyStats:
+    """Project frame a's cached points into frame b and measure agreement;
+    caches and T_ba carry a leading batch axis. One K5 launch on the card,
+    its twin on the CPU (:func:`dense_verify_sums`)."""
+    return _verify_stats(dense_verify_sums(cache_a, cache_b, (T_ba,), cam, cfg)[0])
+
+
 def dense_verify_filter(cache_a, cache_b, T_ba, cam: CameraModel, cfg: BundlingConfig) -> torch.Tensor:
-    """Symmetric pass/fail dense verification, batched over pairs."""
-    v_ab = dense_verify(cache_a, cache_b, T_ba, cam, cfg)
-    v_ba = dense_verify(cache_b, cache_a, se3.mat_inverse(T_ba), cam, cfg)
+    """Symmetric pass/fail dense verification, batched over pairs: both
+    directions in one :func:`dense_verify_sums`."""
+    sums = dense_verify_sums(cache_a, cache_b, (T_ba, se3.mat_inverse(T_ba)), cam, cfg)
+    v_ab, v_ba = _verify_stats(sums[0]), _verify_stats(sums[1])
     ok_frac = 0.5 * (v_ab.ok_frac + v_ba.ok_frac)
     overlap = 0.5 * (v_ab.overlap + v_ba.overlap)
     return (ok_frac > cfg.verify_ok_fraction) & (overlap > cfg.verify_min_overlap)

@@ -26,7 +26,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("tsdf_integrate.cu", "preprocess.cu", "assemble.cu", "sift_sample.cu")
+SOURCES = ("tsdf_integrate.cu", "preprocess.cu", "assemble.cu", "sift_sample.cu", "dense_verify.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "libbf_kernels.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +39,7 @@ _SIGNATURES = {
     "bf_assemble": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P],
     "bf_assemble_scratch_bytes": [_I, _I],
     "bf_sift_sample": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P],
+    "bf_dense_verify": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 3 + [_I] * 4 + [_F] * 13 + [_P],
 }
 _RESTYPES = {"bf_assemble_scratch_bytes": _L}  # every other function returns its cudaError
 

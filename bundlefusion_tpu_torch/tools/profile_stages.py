@@ -1,14 +1,17 @@
 """Per-stage device times of the chunk step at the flagship shapes (port of
 ``tools/profile_stages.py``): each sub-stage of ``process_chunk``
-(preprocess with K2, SIFT, matching, the filters, the local BA), the whole
-chunk step, and ``fuse_batch``'s internals (the update-key lists at
-allocation strides 1 and 4, union + allocate, the whole fuse with K1).
+(preprocess with K2, SIFT, matching, the filters, their dense verification
+alone (K5), the local BA, the opt-verify (K5)), the whole chunk step, and
+``fuse_batch``'s internals (the update-key lists at allocation strides 1
+and 4, union + allocate, the whole fuse with K1).
 
     python -m bundlefusion_tpu_torch.tools.profile_stages [width height] [--device cuda] [--reps 10]
 
 On a card each line is the median of ``--reps`` (at least 1) timings between
-CUDA events (after one warm call); with ``--device cpu`` it is the host clock of the
-plain PyTorch twins, which says nothing about a card. The bundling
+CUDA events (after one warm call), then the kernels one more call launches
+and their summed device time, from ``torch.profiler``'s device events; with
+``--device cpu`` it is the host clock of the plain PyTorch twins, which says
+nothing about a card. The bundling
 configuration is the flagship's, with the cache at an eighth of the frame
 size (80x60 at 640x480), and the flagship's block pool of 262,144 blocks.
 ``--tiny`` takes the tiny test configuration instead (capacities for a smoke
@@ -54,6 +57,22 @@ def timer(device):
     return run
 
 
+def device_kernels(fn) -> tuple[int, float]:
+    """(kernels launched, their summed device ms) in one call of ``fn``,
+    from the profiler's device events (copies and fills left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
 def main(argv=None) -> dict[str, float]:
     p = argparse.ArgumentParser()
     p.add_argument("size", type=int, nargs="*", default=[640, 480], help="width height")
@@ -72,6 +91,7 @@ def main(argv=None) -> dict[str, float]:
     from ..config import AppConfig, BundlingConfig, tiny_test_config
     from ..features import filters, matcher, sift
     from ..fusion import blocks, tsdf
+    from ..geometry import se3
     from ..io import framewire
     from ..io.synthetic import generate_sequence
     from ..ops.preprocess import preprocess_frames_y, wire_depth_to_m
@@ -108,6 +128,10 @@ def main(argv=None) -> dict[str, float]:
     def line(name, fn, note=""):
         ms, result = time_ms(fn, args.reps)
         out[name] = ms
+        if dev.type == "cuda":
+            kernels, device_ms = device_kernels(fn)
+            out[f"{name} kernels"], out[f"{name} device ms"] = kernels, device_ms
+            note = f"; {kernels} kernels, {device_ms:.3f} ms of device time{note}"
         print(f"{name:<28}{ms:10.3f} ms{note}", flush=True)
         return result
 
@@ -128,6 +152,9 @@ def main(argv=None) -> dict[str, float]:
                                           cfg.min_matches_local)
 
     filt = line("filters", filt_fn)
+    pa_c, pb_c = cache.index(pairs_a), cache.index(pairs_b)
+    line("dense_verify_filter (K5)",
+         lambda: filters.dense_verify_filter(pa_c, pb_c, filt.transform, cache_cam, cfg))
 
     def local_ba():
         fm = filt.matches
@@ -149,7 +176,10 @@ def main(argv=None) -> dict[str, float]:
         return gn.solve_and_prune(init, problem, cache, cache_cam, cfg, gn_iters=cfg.local_gn_iters,
                                   pcg_iters=cfg.local_pcg_iters, use_dense=cfg.use_dense_local, prune_rounds=2)
 
-    line("local BA (GN+prune)", local_ba)
+    solved = line("local BA (GN+prune)", local_ba)[0]
+    T_ij = torch.einsum("nij,njk->nik", se3.mat_inverse(solved[1:]), solved[:-1])
+    line("opt-verify (K5)", lambda: filters.dense_verify(cache.index(slice(None, -1)), cache.index(slice(1, None)),
+                                                          T_ij, cache_cam, cfg))
     line("process_chunk FULL", lambda: process_chunk(d16, y8, cam, cache_cam, cfg))
 
     # the fusion side: fuse_batch's internals at the pipeline's row count

@@ -33,12 +33,20 @@ exits non-zero; there is no CPU fallback):
                 sampling) at one flagship octave (11
                 frames x 512 keys x 256 window points, border keys, clamped
                 patch origins), both windows, against its twin and the matmul
-                form it replaced. Every kernel bit-equal to its twin.
+                form it replaced; K5 (the dense verification) at its three
+                call shapes on rendered 80x60 caches (``k5_cases``: a
+                chunk's filter, its opt-verify, graph_step's match with 7
+                and with 128 keyframe slots filled) and its edge cases
+                (``verify_edge_inputs``), timed eagerly and in a CUDA graph
+                against its twin and the matmul- and gather-form dense
+                verification it replaced. Every kernel bit-equal to its
+                twin.
   4. slice    — the flagship configuration of ``bench.py`` (640x480, 262,144
                 blocks, 1 cm voxels) on 66 rendered frames through
                 push_frame -> flush -> outputs (async ingest, the default):
                 a warm pass, then a timed pass; every chunk valid, ATE <= 0.5
-                cm, all four kernels launched (K1, K2, K4 as counted per chunk).
+                cm, all five kernels launched (K1, K2, K4, K5 as counted per
+                chunk).
                 Then a small configuration (128x96, 13 frames) run on the CPU
                 (twins) and twice on the card (kernels): CPU and card agree,
                 and the card runs are bit-identical.
@@ -149,11 +157,9 @@ exits non-zero; there is no CPU fallback):
                 frame, the top 10
                 device operations, the 5 longest idle gaps with the host
                 spans open during each, idle time by stage, device time by
-                stage and the port's four kernels by stage; the gzipped
+                stage and the port's five kernels by stage; the gzipped
                 trace goes to ``chiprun_out/``); a profile without device
-                events fails. Then ``filters.dense_verify``'s bilinear
-                sampling (the matmul form, still on the main path) timed
-                alone at its call shapes, against the gather form. Then the port's bench, ``python -m
+                events fails. Then the port's bench, ``python -m
                 bundlefusion_tpu_torch.bench`` (the counterpart of
                 bench.py), in a subprocess at the flagship (5 timed passes)
                 and at 320x240 with 32,768 blocks (3 passes): its result
@@ -176,7 +182,8 @@ exits non-zero; there is no CPU fallback):
                 later graphed pass replays every program at every chunk it
                 runs (``graph_step_first`` once, ``chunk_local`` at every
                 chunk); one K1 and one K2 launch per chunk, K4 twice per
-                SIFT octave and chunk and K3 at least once per GN iteration,
+                SIFT octave and chunk, K5 three times per chunk but the
+                first (twice) and K3 at least once per GN iteration,
                 counted through replays; 0 readbacks; ATE <= 0.5 cm, every
                 chunk valid. Then two programs of one executable: the
                 outputs of the one captured second survive a replay of the
@@ -187,7 +194,7 @@ call when its executable is fresh, chunk 0's stages at chunk 0, and
 replayed after); phase 5's window replays the executable phase 4 captured,
 and says so. Phases 4 and 6-15 set the kernels' launch counts to 0 before
 their run and read them after it (a replay adds the launches its graph
-captured): each of their paths must launch all four kernels. Small outputs
+captured): each of their paths must launch all five kernels. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
@@ -859,8 +866,288 @@ def check_k4(torch, dev):
                         patch_gather_ms=gather_ms, err_vs_matmul=mm_err)
 
 
+K5_EDGE_CASES = ("all_invalid", "z_tiny", "band", "no_projection", "nan_transform")
+
+
+def _field_frame(rng, h: int, w: int, cam):
+    """One cache frame of a smooth random surface 0.9-1.5 m away: depth with
+    8% holes, points unprojected by ``cam`` (fx, fy, cx, cy), unit normals
+    near -z, intensity in [0, 1]. Returns numpy (depth, points, normals,
+    intensity, grad)."""
+    fx, fy, cx, cy = cam[:4]
+    v, u = np.mgrid[0:h, 0:w].astype(np.float64)
+    f1, f2, p1, p2 = rng.uniform(0.5, 2.0, 2).tolist() + rng.uniform(0, 2 * np.pi, 2).tolist()
+    z = 1.2 + 0.3 * np.sin(2 * np.pi * u / w * f1 + p1) * np.cos(2 * np.pi * v / h * f2 + p2)
+    z = np.where(rng.random((h, w)) < 0.08, 0.0, z + 0.002 * rng.standard_normal((h, w)))
+    pts = np.stack([(u - cx) / fx * z, (v - cy) / fy * z, z], -1)
+    n = np.stack([0.15 * rng.standard_normal((h, w)), 0.15 * rng.standard_normal((h, w)), -np.ones((h, w))], -1)
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    inten = 0.5 + 0.3 * np.sin(2 * np.pi * (u / w + v / h) * f2 + p1) + 0.02 * rng.standard_normal((h, w))
+    inten = np.clip(inten, 0, 1)
+    f32 = np.float32
+    return z.astype(f32), pts.astype(f32), n.astype(f32), inten.astype(f32), np.zeros((h, w, 2), f32)
+
+
+def _small_motion(rng, angle: float, shift: float) -> np.ndarray:
+    axis = rng.standard_normal(3)
+    axis /= np.linalg.norm(axis)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+    T[:3, 3] = rng.standard_normal(3) * shift
+    return T.astype(np.float32)
+
+
+def verify_edge_inputs(case: str, pairs: int = 4, h: int = 24, w: int = 32):
+    """K5's edge cases (``K5_EDGE_CASES``) on random cache frames: pair 0
+    carries the case, the other pairs are ordinary (frame b is frame a
+    with noise, turned by up to 0.05 rad and shifted by ~1.5 cm an axis):
+    every a-side pixel invalid; points at z in {0, 1e-7, 1e-6 (f32), the
+    next float, 1e-5} under the identity; points projecting exactly onto w - 1 and h - 1, into
+    the 1e-4 band past them, just past it and onto the clamp, under the
+    identity with fx = fy = 1, cx = cy = 0 (the case's camera); a transform
+    that puts every point behind the camera; a NaN in the transform.
+    Returns numpy (cache a, cache b: tuples of [P, h, w(, c)] fields as
+    FrameCache orders them, T_ba [P, 4, 4], camera (fx, fy, cx, cy, width,
+    height))."""
+    rng = np.random.default_rng(200 + K5_EDGE_CASES.index(case))
+    cam = (1.0, 1.0, 0.0, 0.0, w, h) if case == "band" else (0.9 * w, 0.9 * w, (w - 1) / 2, (h - 1) / 2, w, h)
+    fa = [_field_frame(rng, h, w, cam) for _ in range(pairs)]
+    fb = []
+    for d, p, n, i, g in fa:
+        db = np.where(d > 0, d + 0.004 * rng.standard_normal(d.shape).astype(np.float32), 0.0).astype(np.float32)
+        pb = (p * np.where(d > 0, db / np.where(d > 0, d, 1.0), 0.0)[..., None]).astype(np.float32)
+        nb = n + 0.02 * rng.standard_normal(n.shape).astype(np.float32)
+        nb = (nb / np.linalg.norm(nb, axis=-1, keepdims=True)).astype(np.float32)
+        fb.append((db, pb, nb, (i + 0.03 * rng.standard_normal(i.shape)).astype(np.float32), g))
+    T = np.stack([_small_motion(rng, rng.uniform(0, 0.05), 0.015) for _ in range(pairs)])
+    a = [np.stack(x) for x in zip(*fa)]
+    b = [np.stack(x) for x in zip(*fb)]
+    if case == "all_invalid":
+        a[0][0], a[1][0] = 0.0, 0.0
+    elif case == "z_tiny":
+        T[0] = np.eye(4, dtype=np.float32)
+        zs = np.array([0.0, 1e-7, np.float32(1e-6), np.nextafter(np.float32(1e-6), np.float32(1)), 1e-5], np.float32)
+        band = a[1][0, : h // 2]
+        band[..., 2] = np.resize(zs, band.shape[:2])
+        a[0][0, : h // 2] = 1.0
+    elif case == "band":
+        T[0] = np.eye(4, dtype=np.float32)
+        f32 = np.float32
+        us = np.array([w - 1.0, w - 1.0 + 5e-5, w - 1.0 + 9e-5, w - 1.0 + 2e-4, w - 1.001, w - 2.0, 0.0, -1e-7], f32)
+        vs = np.array([h - 1.0, h - 1.0 + 5e-5, h - 1.0 + 9e-5, h - 1.0 + 2e-4, h - 1.001, 1.5, 0.0, -1e-7], f32)
+        a[0][0] = 1.0
+        a[1][0, ..., 0] = np.resize(us, (h, w))
+        a[1][0, ..., 1] = np.resize(vs, (w, h)).T
+        a[1][0, ..., 2] = f32(1.0)
+    elif case == "no_projection":
+        T[0, 2, 3] = -10.0
+    elif case == "nan_transform":
+        T[0, 0, 0] = np.nan
+    return tuple(a), tuple(b), T, cam
+
+
+# K5 (dense verification): operations of one valid source pixel (transform 18,
+# project 4, the z, inside and in-bounds tests 9) and two divides; of one
+# pixel that projects (clamps, floors and tents 18, five channels sampled
+# 45, depth error 2, normal rotated 15, its norm 5, dot 5, intensity 2,
+# tests 3) and a square root and three divides
+K5_PIXEL_FLOPS, K5_PIXEL_MUFU = 31, 2
+K5_PROJ_FLOPS, K5_PROJ_MUFU = 95, 4
+
+
+def sampled_dense_verify(cache_a, cache_b, T_ba, cam, cfg, sample):
+    """The port's dense verification before K5 (sampling with ``sample``:
+    ``ops/preprocess.py::bilinear_sample_matmul``, the JAX package's matmul
+    form, or ``bilinear_sample_gather``), for one direction: [..., 4]
+    float32 (valid, projected, agreeing pixels, depth-error sum). K5's
+    yardstick on the card; the port does not call it."""
+    import torch
+    from bundlefusion_tpu_torch.geometry import se3
+    from bundlefusion_tpu_torch.geometry.camera import project
+
+    lead = cache_a.depth.shape[:-2]
+    pts_a = cache_a.points.reshape(*lead, -1, 3)
+    valid_a = cache_a.depth.reshape(*lead, -1) > 0.0
+    pts_in_b = se3.transform_points(T_ba, pts_a)
+    uv, proj_ok = project(cam, pts_in_b)
+    stack_b = torch.cat([cache_b.depth[..., None], cache_b.normals, cache_b.intensity[..., None]], dim=-1)
+    samp, inb = sample(stack_b, uv)
+    depth_b, normal_b, inten_b = samp[..., 0], samp[..., 1:4], samp[..., 4]
+    proj_ok = proj_ok & inb & valid_a & (depth_b > 0.0)
+    dist = torch.abs(pts_in_b[..., 2] - depth_b)
+    n_a = se3.rotate_vectors(T_ba, cache_a.normals.reshape(*lead, -1, 3))
+    nb_norm = normal_b / torch.clamp(torch.linalg.vector_norm(normal_b, dim=-1, keepdim=True), min=1e-9)
+    ndot = torch.sum(n_a * nb_norm, dim=-1)
+    dint = torch.abs(cache_a.intensity.reshape(*lead, -1) - inten_b)
+    agree = (proj_ok & (dist < cfg.verify_dist_thresh) & (ndot > cfg.verify_normal_thresh)
+             & (dint < cfg.verify_color_thresh))
+    return torch.stack([valid_a.sum(-1).float(), proj_ok.sum(-1).float(), agree.sum(-1).float(),
+                        torch.sum(torch.where(proj_ok, dist, 0.0), dim=-1)], dim=-1)
+
+
+def k5_cases(torch, cache, poses, bc) -> dict:
+    """K5's call shapes on rendered flagship caches (80x60, from 640x480
+    frames of the orbit), with the ground-truth relative poses, each as
+    (cache a, cache b, transforms): a chunk's filter (its 55 pairs both
+    ways, each side a gathered copy as ``cache.index(pairs)`` makes it), its
+    opt-verify (the 10 consecutive pairs one way, views of the chunk's
+    cache) and graph_step's global match (128 keyframe slots against the new
+    keyframe, broadcast at stride 0, both ways), with 7 slots filled (the
+    flagship pass's last chunk) and with all 128."""
+    from bundlefusion_tpu_torch.geometry import se3
+
+    dev = cache.depth.device
+    s1 = bc.chunk_size
+    chunk = cache.index(slice(0, s1))
+    pa, pb = torch.triu_indices(s1, s1, offset=1, device=dev)
+    rel = se3.mat_inverse(poses[pb]) @ poses[pa]
+    cases = {"chunk_filter": (chunk.index(pa), chunk.index(pb), (rel, se3.mat_inverse(rel)))}
+    cases["opt_verify"] = (chunk.index(slice(None, -1)), chunk.index(slice(1, None)),
+                           (se3.mat_inverse(poses[1:s1]) @ poses[: s1 - 1],))
+    kmax, new = bc.max_num_images, cache.num_frames - 1
+
+    def fields(c):
+        return [getattr(c, f.name) for f in dataclasses.fields(c)]
+
+    for name, filled in (("graph_step_7", 7), ("graph_step_128", kmax)):
+        slots = torch.arange(filled, device=dev) * 3 % new
+        graph = type(cache)(*(torch.zeros((kmax,) + f.shape[1:], device=dev) for f in fields(cache)))
+        for f, src in zip(fields(graph), fields(cache.index(slots))):
+            f[:filled] = src
+        T = torch.eye(4, device=dev).repeat(kmax, 1, 1)
+        T[:filled] = se3.mat_inverse(poses[new])[None] @ poses[slots]
+        ncache = type(cache)(*(f[new][None].expand(kmax, *f.shape[1:]) for f in fields(cache)))
+        cases[name] = (graph, ncache, (T, se3.mat_inverse(T)))
+    return cases
+
+
+def _k5_bound(torch, a, b, ts, cam, bc, sums):
+    """K5's least time on this call's data. Bytes: each cache frame it is
+    given (by storage: a frame broadcast to every pair once, rows shared by
+    two views once) read once, and of it only what the function needs: the
+    depth of every pixel of a frame that is a source, the point of each
+    valid source pixel, the normal and intensity of each source pixel that
+    projected; of the destination, the depth at the taps of non-zero weight
+    of every pixel that passed the geometric tests, and the normal and
+    intensity at those of every pixel that projected; the transforms read
+    and the sums written once. Operations: those of every valid source
+    pixel and of every pixel that projected."""
+    from bundlefusion_tpu_torch.features import filters
+    from bundlefusion_tpu_torch.geometry import se3
+    from bundlefusion_tpu_torch.geometry.camera import project
+
+    h, w = a.depth.shape[-2:]
+    d = h * w
+    dev = a.depth.device
+    pairs = a.depth.reshape(-1, h, w).shape[0]
+
+    def frames(side):
+        dep = side.depth.reshape(-1, h, w)
+        step = dep.stride(0) if dep.shape[0] > 1 else 0
+        return [dep.data_ptr() + 4 * step * i for i in range(dep.shape[0])]
+
+    index = {k: i for i, k in enumerate(dict.fromkeys(frames(a) + frames(b)))}
+    ia, ib = (torch.tensor([index[k] for k in frames(side)], device=dev)[:, None] * d for side in (a, b))
+    need = torch.zeros((3, len(index) * d), dtype=torch.bool, device=dev)  # depth; point; normal, intensity
+    pix = torch.arange(d, device=dev)
+    for (src, dst, T), fs, fd in zip(((a, b, ts[0]), (b, a, ts[-1]))[: len(ts)], (ia, ib), (ib, ia)):
+        valid, proj_ok = (m.reshape(pairs, d) for m in filters._verify_terms(src, dst, T, cam, bc)[:2])
+        pts = se3.transform_points(T.reshape(pairs, 4, 4), src.points.reshape(pairs, d, 3))
+        uv, ok = project(cam, pts)
+        u, v = uv.unbind(-1)
+        geo = valid & ok & (u < w - 1.0 + 1e-4) & (v < h - 1.0 + 1e-4)
+        uc, vc = torch.clamp(u, 0.0, w - 1.001), torch.clamp(v, 0.0, h - 1.001)
+        u0, v0 = torch.nan_to_num(torch.floor(uc)), torch.nan_to_num(torch.floor(vc))
+        base = fd + v0.long() * w + u0.long()
+        need[0, (fs + pix).reshape(-1)] = True
+        need[1, (fs + pix)[valid]] = True
+        need[2, (fs + pix)[proj_ok]] = True
+        for off, tap in ((0, None), (1, uc > u0), (w, vc > v0), (w + 1, (uc > u0) & (vc > v0))):
+            at = geo if tap is None else geo & tap
+            need[0, (base + off)[at]] = True
+            need[2, (base + off)[at & proj_ok]] = True
+    n_depth, n_point, n_rest = (int(x) for x in need.sum(-1))
+    nbytes = 4 * n_depth + 12 * n_point + 16 * n_rest + len(ts) * pairs * (64 + 16)
+    pixels, proj = float(sums[..., 0].sum()), float(sums[..., 1].sum())
+    return bound(nbytes, pixels * K5_PIXEL_FLOPS + proj * K5_PROJ_FLOPS, pixels * K5_PIXEL_MUFU + proj * K5_PROJ_MUFU)
+
+
+def check_k5(torch, dev, cache, poses, cam):
+    """K5 against its twin at its three call shapes (``k5_cases``) and its
+    edge cases (``verify_edge_inputs`` at 80x60), every sum bit-equal; each
+    shape timed eagerly (five calls back to back) and in a CUDA graph,
+    against the twin, the matmul-form dense verification it replaced and
+    the gather form, beside its bound; the pairs whose counts differ from
+    the matmul form's."""
+    from bundlefusion_tpu_torch.features import filters
+    from bundlefusion_tpu_torch.geometry import se3
+    from bundlefusion_tpu_torch.geometry.camera import CameraModel
+    from bundlefusion_tpu_torch.ops import preprocess as pp
+    from bundlefusion_tpu_torch.ops.preprocess import FrameCache
+
+    bc = flagship_config().bundling
+    out = {}
+    for name, (a, b, ts) in k5_cases(torch, cache, poses, bc).items():
+        sides = ((a, b), (b, a))[: len(ts)]
+        got = filters.dense_verify_sums(a, b, ts, cam, bc)
+        want = torch.stack([filters._dense_verify_torch(x, y, t, cam, bc) for (x, y), t in zip(sides, ts)])
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {name}: not bit-equal to its twin (max |err| {err})")
+        forms = {}
+        for form, sample in (("matmul", pp.bilinear_sample_matmul), ("gather", pp.bilinear_sample_gather)):
+            def run(sample=sample):
+                return torch.stack([sampled_dense_verify(x, y, t, cam, bc, sample) for (x, y), t in zip(sides, ts)])
+            ref = run()
+            flips = int((ref[..., :3] != got[..., :3]).any(-1).sum())
+            rel = float(((ref[..., 3] - got[..., 3]).abs() / ref[..., 3].abs().clamp(min=1e-30)).max())
+            forms[form] = dict(ms=cuda_ms(torch, run, n=5, batch=1), pairs_whose_counts_differ=flips, err_rel=rel)
+            del ref
+        ms = cuda_ms(torch, lambda: filters.dense_verify_sums(a, b, ts, cam, bc))
+        gms = graph_ms(torch, lambda: filters.dense_verify_sums(a, b, ts, cam, bc))
+        plain_ms = cuda_ms(torch, lambda: [filters._dense_verify_torch(x, y, t, cam, bc)
+                                           for (x, y), t in zip(sides, ts)], n=5, batch=1)
+        bound_ms, bound_by = _k5_bound(torch, a, b, ts, cam, bc, got)
+        pairs = a.depth.shape[0]
+        rec = dict(pairs=pairs, directions=len(ts), projected=int(got[..., 1].sum()), agreeing=int(got[..., 2].sum()),
+                   max_abs_err=err, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=forms["matmul"]["ms"],
+                   gather_ms=forms["gather"]["ms"], bound_ms=bound_ms, bound_by=bound_by, forms=forms)
+        phase("kernels", f"K5 dense_verify {name}: {pairs} pairs x {len(ts)} direction(s) at 80x60, "
+              f"{rec['projected']} pixels projected, {rec['agreeing']} agreeing; bit-equal to the twin; kernel "
+              f"{ms:.4f} ms (five eager calls), {gms:.4f} ms in a graph; twin {plain_ms:.4f} ms; matmul form "
+              f"{forms['matmul']['ms']:.4f} ms, gather form {forms['gather']['ms']:.4f} ms; pairs whose counts "
+              f"differ from the matmul form's {forms['matmul']['pairs_whose_counts_differ']} (err within "
+              f"{forms['matmul']['err_rel']:.2g} relative); bound {bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / gms:.3f} in a graph")
+        out[name] = rec
+        del a, b, ts, got, want
+        torch.cuda.empty_cache()
+    edges = []
+    for case in K5_EDGE_CASES:
+        a, b, T, ecam = verify_edge_inputs(case, h=bc.cache_height, w=bc.cache_width)
+        a, b = (FrameCache(*(torch.as_tensor(x, device=dev) for x in side)) for side in (a, b))
+        T, ecam = torch.as_tensor(T, device=dev), CameraModel(*ecam)
+        ts = (T, se3.mat_inverse(T))
+        got = filters.dense_verify_sums(a, b, ts, ecam, bc)
+        want = torch.stack([filters._dense_verify_torch(a, b, T, ecam, bc),
+                            filters._dense_verify_torch(b, a, ts[1], ecam, bc)])
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 edge case {case}: not bit-equal to its twin: {got[:, 0]} against {want[:, 0]}")
+        edges.append(case)
+    phase("kernels", f"K5 edge cases at 80x60, both directions, bit for bit: {', '.join(edges)}")
+    g = out["graph_step_128"]
+    return kernel_entry("dense_verify", "bundlefusion_tpu_torch/csrc/dense_verify.cu",
+                        "bundlefusion_tpu/features/filters.py:111", max(r["max_abs_err"] for r in out.values()),
+                        g["ms"], g["plain_ms"], g["bound_ms"], g["bound_by"], g["library_ms"],
+                        library_ms_is="the matmul-form dense verification it replaced (both directions), not "
+                                      "one call", graph_ms=g["graph_ms"],
+                        share_of_bound_in_graph=g["bound_ms"] / g["graph_ms"], edge_cases=edges, cases=out)
+
+
 def check_kernels(torch, T, dev):
-    """Phase 3: K1 and K2 against their twins at flagship shapes."""
+    """Phase 3: K1-K5 against their twins at flagship shapes."""
     from bundlefusion_tpu_torch.io import framewire
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
     from bundlefusion_tpu_torch.ops import preprocess as pp
@@ -887,12 +1174,18 @@ def check_kernels(torch, T, dev):
     k1["deintegrate"] = check_deintegrate(torch, T, dev, depth, c8, poses, seq.camera)
     torch.cuda.empty_cache()
     k2 = check_k2(torch, T, dev, depth[:11].contiguous(), seq.camera)
-    del seq, wires, d16, depth, c8, poses
+    bc = flagship_config().bundling
+    cache_cam = seq.camera.scaled(bc.cache_width, bc.cache_height)
+    y8 = torch.as_tensor(np.stack([w[1] for w in wires]), device=dev)
+    _, cache = pp.preprocess_frames_y(d16, y8, seq.camera, cache_cam, geometry=False)
+    del seq, wires, d16, depth, c8, y8
     torch.cuda.empty_cache()
     k3 = check_k3(torch, dev)
     torch.cuda.empty_cache()
     k4 = check_k4(torch, dev)
-    return [k1, k2, k3, k4]
+    torch.cuda.empty_cache()
+    k5 = check_k5(torch, dev, cache, poses, cache_cam)
+    return [k1, k2, k3, k4, k5]
 
 
 def run_pass(seq, cfg, dev, push_seconds: list | None = None, wrap=None, profile: bool = False):
@@ -996,13 +1289,14 @@ def run_slice(torch, T, dev, kernels_out):
 
 def counted_kernels() -> dict:
     """The kernel wrappers by the name their entries carry."""
+    from bundlefusion_tpu_torch.features.filters import dense_verify_sums
     from bundlefusion_tpu_torch.features.sift import sample_window
     from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
     from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
     from bundlefusion_tpu_torch.solver.system import assemble_system
 
     return {"tsdf_integrate": integrate_blocks, "preprocess": fused_preprocess, "assemble": assemble_system,
-            "sift_sample": sample_window}
+            "sift_sample": sample_window, "dense_verify": dense_verify_sums}
 
 
 def reset_launches() -> None:
@@ -1024,7 +1318,9 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
     """Kernel launches of a pass of ``chunks`` chunks: one K1 and one K2 per
     chunk; K4 twice (orientation, descriptor) per SIFT octave of each chunk;
     K3 once per GN iteration of the local solve (two prune rounds) and of
-    the global solve (one round, from the second chunk on)."""
+    the global solve (one round, from the second chunk on); K5 twice per
+    chunk (the filter, the opt-verify) and once per global match (from the
+    second chunk on)."""
     bc, ac = cfg.bundling, cfg.app
     h, w, octaves = ac.input_height, ac.input_width, 0
     for _ in range(bc.sift_octaves):
@@ -1032,14 +1328,15 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
             break
         octaves, h, w = octaves + 1, -(-h // 2), -(-w // 2)
     return {"tsdf_integrate": chunks, "preprocess": chunks, "sift_sample": 2 * octaves * chunks,
-            "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters}
+            "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters,
+            "dense_verify": 3 * chunks - 1}
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
-    """K1, K2 and K4 as ``expected_launches`` counts them; K3 at least once
-    per solve iteration counted there (a relocalization or revalidation
-    solves more)."""
-    exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample")}
+    """K1, K2, K4 and K5 as ``expected_launches`` counts them; K3 at least
+    once per solve iteration counted there (a relocalization or
+    revalidation solves more)."""
+    exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample", "dense_verify")}
     if exact != {k: want[k] for k in exact} or launches["assemble"] < want["assemble"]:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3 at least)")
 
@@ -2226,7 +2523,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the port's kernels by the name of their __global__ function
 OUR_KERNELS = {"tsdf_fuse_kernel": "tsdf_integrate", "preprocess_kernel": "preprocess",
                "assemble_flags_kernel": "assemble pass 1", "assemble_rows_kernel": "assemble pass 2",
-               "sift_sample_kernel": "sift_sample"}
+               "sift_sample_kernel": "sift_sample", "dense_verify_kernel": "dense_verify"}
 # the host's calls that put work on the device: a kernel launch, a whole
 # CUDA graph's launch, an asynchronous copy or fill
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
@@ -2310,6 +2607,11 @@ def summarize_trace(events: list, span: str, frames: int) -> dict:
         g[1] += 1
     total = sum(g[0] for g in groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1][0])[:10]
+    by_stage: dict = {}  # each stage's five longest device operations
+    for key, (us, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        op, _, name = key.partition(" | ")
+        if name and op in STAGES and len(by_stage.setdefault(op, [])) < 5:
+            by_stage[op].append(dict(op=name, ms=round(us / 1e3, 3), count=count))
     # busy intervals and idle gaps inside the window
     merged = busy_intervals(dev, w0, w1)
     busy = sum(e - s for s, e in merged)
@@ -2354,7 +2656,7 @@ def summarize_trace(events: list, span: str, frames: int) -> dict:
         top=[dict(op=k, ms=v[0] / 1e3, count=v[1], share=v[0] / total) for k, v in top], gaps=gap_rows,
         threads=len(by_tid), idle_by_stage=dict(sorted(idle_by_stage.items(), key=lambda kv: -kv[1])),
         device_ms_by_op=dict(sorted(((k, round(v, 3)) for k, v in by_op.items()), key=lambda kv: -kv[1])[:10]),
-        our_kernels={k: dict(ms=round(v[0], 3), count=v[1]) for k, v in ours.items()},
+        our_kernels={k: dict(ms=round(v[0], 3), count=v[1]) for k, v in ours.items()}, top_by_stage=by_stage,
     )
 
 
@@ -2430,34 +2732,6 @@ def device_profile(torch, seq, cfg, dev) -> dict:
     return summary
 
 
-def verify_sampling(torch, dev, cfg) -> list:
-    """``filters.dense_verify``'s bilinear sampling (``ops/preprocess.py::
-    bilinear_sample_matmul``, the tent-weight matmul form, still on the main
-    path) at the flagship's call shapes, on random cache planes: per call
-    and per chunk, against the gather form on the same inputs. Calls per
-    chunk: the chunk's 55 pairs both ways and the 10 consecutive pairs in
-    chunk_local, all 128 keyframe slots both ways in graph_step."""
-    from bundlefusion_tpu_torch import bench
-    from bundlefusion_tpu_torch.ops import preprocess as pp
-
-    bc = cfg.bundling
-    h, w = bc.cache_height, bc.cache_width
-    rng = np.random.default_rng(9)
-    rows = []
-    for stage, lead, calls in (("chunk_local", bc.chunk_size * (bc.chunk_size - 1) // 2, 2),
-                               ("chunk_local", bc.chunk_size - 1, 1), ("graph_step", bc.max_num_images, 2)):
-        img = torch.as_tensor(rng.random((lead, h, w, 5), dtype=np.float32), device=dev)
-        uv = torch.as_tensor(np.stack([rng.uniform(-2, w + 1, (lead, h * w)), rng.uniform(-2, h + 1, (lead, h * w))],
-                                      -1).astype(np.float32), device=dev)
-        mm = cuda_ms(torch, lambda: pp.bilinear_sample_matmul(img, uv), n=5, batch=1)
-        ga = cuda_ms(torch, lambda: pp.bilinear_sample_gather(img, uv), n=5, batch=1)
-        rows.append(dict(stage=stage, pairs=lead, calls_per_chunk=calls, matmul_ms=mm, gather_ms=ga))
-        phase("bench", f"dense_verify's sampling ({bench.device_line(dev)}), {stage}, {lead} pairs at {w}x{h}, "
-              f"{calls} call(s) per chunk: matmul form {mm:.3f} ms per call, gather form {ga:.3f} ms")
-        del img, uv
-    return rows
-
-
 def run_bench(torch, T, dev, kernels_out, seq) -> None:
     """Phase 14: in this process, after an untraced warm pass (it captures
     the chunk step's graphs), two flagship passes of the bench's
@@ -2465,8 +2739,7 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     share near the unprofiled rate, and one K1 and one K2 launch per
     chunk), one under the full profiler (launches per frame, the top device
     operations, the idle gaps and the host at each; device time by stage
-    and the port's kernels by stage), and the dense verification's sampling
-    timed alone. Then the port's bench, ``python -m
+    and the port's kernels by stage). Then the port's bench, ``python -m
     bundlefusion_tpu_torch.bench``, at bench.py's two sizes in
     subprocesses."""
     from bundlefusion_tpu_torch import bench
@@ -2507,7 +2780,8 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     phase("bench", f"  idle ms by the stage open on the worker threads: {json.dumps(idle)}")
     phase("bench", f"  device ms by the host op that launched the kernels (a graph's: its stage): "
           f"{json.dumps(full['device_ms_by_op'])}; the port's kernels (ms, count): {json.dumps(full['our_kernels'])}")
-    full["dense_verify_sampling"] = verify_sampling(torch, dev, cfg)
+    for stage, rows in full["top_by_stage"].items():
+        phase("bench", f"  {stage}'s longest device operations: {json.dumps(rows)}")
 
     pipe._EXECUTABLES.clear()  # the card's memory is the subprocesses'
     torch.cuda.empty_cache()
@@ -2628,7 +2902,8 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
         if p["chunks"] != chunks or not all(p["valid_chunks"]) or not p["ate"] <= 0.005:
             raise AssertionError(f"{p['mode']}: chunks valid {p['valid_chunks']}, ATE {p['ate'] * 100:.4f} cm")
     phase("graphs", f"{len(passes)} passes ({sum(p['mode'] == 'graphed' for p in passes)} graphed): state digests "
-          f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in each, K3 and K4 as the solves and SIFT octaves count them")
+          f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in "
+          "each, K3, K4 and K5 as the solves, SIFT octaves and verifications count them")
     want = {k: n for k, n in bench.expected_replays(chunks, cfg).items() if n}
     first_replays = {k: v["replays"] for k, v in first["stats"].items()}
     if first_replays != {k: n - 1 for k, n in want.items()} or not all(v["captured"] for v in first["stats"].values()):

@@ -137,7 +137,11 @@ def recorded(seq):
     """One pass (chunks 0-3) with every operation of the stages recorded,
     and the addresses of the state before and after each stage; the state
     after chunk 1 is kept. Then the pipeline is dropped, so its executable
-    returns to the cache."""
+    returns to the cache. The cache starts empty: an idle executable of this
+    configuration left by an earlier test in the process would be lent
+    first."""
+    gc.collect()
+    tpipe._EXECUTABLES.clear()
     bf, ptrs = _pipeline(seq), {}
     ops, after_chunk1 = _push_recorded(bf, seq, N, ptrs, snapshot_at=8)
     assert bf.chunk_count == 4

@@ -3,7 +3,7 @@ CUDA graphs' output storage.
 
 These tests need an NVIDIA card and skip elsewhere. They import neither JAX
 nor the JAX package, so they run on a machine without JAX (from the repo
-root, whose ``chip_smoke.py`` makes the K3 and K4 inputs):
+root, whose ``chip_smoke.py`` makes the K3, K4 and K5 inputs):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -14,15 +14,19 @@ import numpy as np
 import pytest
 import torch
 
+from bundlefusion_tpu_torch.bench import bench_config
 from bundlefusion_tpu_torch.config import tiny_test_config
-from bundlefusion_tpu_torch.features import sift
+from bundlefusion_tpu_torch.features import filters, sift
 from bundlefusion_tpu_torch.fusion import blocks, tsdf
+from bundlefusion_tpu_torch.geometry import se3
+from bundlefusion_tpu_torch.geometry.camera import CameraModel
 from bundlefusion_tpu_torch.io.framewire import frame_to_wire2
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.ops import preprocess as pp
 from bundlefusion_tpu_torch.solver import system
 from bundlefusion_tpu_torch.utils import graphs
-from chip_smoke import K3_EDGE_CASES, assembly_edge_inputs, assembly_inputs, program_outputs_survive, sift_inputs
+from chip_smoke import (K3_EDGE_CASES, K5_EDGE_CASES, assembly_edge_inputs, assembly_inputs, k5_cases,
+                        program_outputs_survive, sift_inputs, verify_edge_inputs)
 
 pytestmark = pytest.mark.cuda
 APP = tiny_test_config().app
@@ -236,6 +240,75 @@ def test_k4_kernel_matches_twin(dev, shape, window):
         np.testing.assert_array_equal(g.cpu().numpy(), t.cpu().numpy())
 
 
+BC = bench_config(640, 480, 262144).bundling  # the flagship's bundling: 80x60 cache, 128 keyframes
+
+
+@pytest.fixture(scope="module")
+def verify_cache(dev):
+    """Twelve rendered frames' flagship caches (80x60, from 160x120 frames)
+    and their poses."""
+    seq = generate_sequence(12, 160, 120, radius=0.5, device=dev)
+    w = [frame_to_wire2(seq.depth[i], seq.color[i], depth_min=0.1, depth_max=4.0) for i in range(12)]
+    d16 = torch.as_tensor(np.stack([x[0] for x in w]).view(np.int16), device=dev)
+    y8 = torch.as_tensor(np.stack([x[1] for x in w]), device=dev)
+    cc = seq.camera.scaled(BC.cache_width, BC.cache_height)
+    _, cache = pp.preprocess_frames_y(d16, y8, seq.camera, cc, geometry=False)
+    return cache, torch.as_tensor(seq.poses, device=dev), cc
+
+
+def _k5_twin(a, b, ts, cam, bc):
+    sides = ((a, b), (b, a))[: len(ts)]
+    return torch.stack([filters._dense_verify_torch(x, y, t, cam, bc) for (x, y), t in zip(sides, ts)])
+
+
+@pytest.mark.parametrize("case", ["chunk_filter", "opt_verify", "graph_step_7", "graph_step_128"])
+def test_k5_kernel_matches_twin(dev, verify_cache, case):
+    """K5 at its call shapes (a chunk's filter on gathered copies, the
+    opt-verify on views, graph_step's match with the new keyframe broadcast
+    at stride 0): the four sums bit-equal to the twin, one launch."""
+    cache, poses, cam = verify_cache
+    a, b, ts = k5_cases(torch, cache, poses, BC)[case]
+    launches = filters.dense_verify_sums.launches
+    got = filters.dense_verify_sums(a, b, ts, cam, BC)
+    want = _k5_twin(a, b, ts, cam, BC)
+    torch.cuda.synchronize()
+    assert filters.dense_verify_sums.launches == launches + 1
+    assert int(got[..., 1].sum()) > 0
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("case", K5_EDGE_CASES)
+@pytest.mark.parametrize("hw", [(24, 32), (60, 80)], ids=["32x24", "80x60"])
+def test_k5_edge_cases(dev, case, hw):
+    a, b, T, cam = verify_edge_inputs(case, h=hw[0], w=hw[1])
+    a, b = (pp.FrameCache(*(torch.as_tensor(x, device=dev) for x in side)) for side in (a, b))
+    T = torch.as_tensor(T, device=dev)
+    ts = (T, se3.mat_inverse(T))
+    got = filters.dense_verify_sums(a, b, ts, CameraModel(*cam), BC)
+    want = _k5_twin(a, b, ts, CameraModel(*cam), BC)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_k5_replays_in_a_graph(dev, verify_cache):
+    """Captured in a CUDA graph, K5 replays to the twin's sums, each replay
+    one launch."""
+    cache, poses, cam = verify_cache
+    a, b, ts = k5_cases(torch, cache, poses, BC)["graph_step_7"]
+    want = _k5_twin(a, b, ts, cam, BC)
+    exe = graphs.Executable(dev, None)
+    prog = exe.program("dense_verify", filters.dense_verify_sums)
+    exe.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(exe.stream):
+        out = prog(a, b, ts, cam, BC)  # eager, then captured
+        launches = filters.dense_verify_sums.launches
+        for _ in range(2):
+            out.zero_()
+            prog(a, b, ts, cam, BC)
+            torch.cuda.current_stream().synchronize()
+            assert torch.equal(out, want)
+    assert prog.replays == 2 and filters.dense_verify_sums.launches == launches + 2
+
+
 def test_program_outputs_survive_other_programs(dev):
     """A program's graph outputs are not overwritten when a program captured
     before it replays (they live outside the executable's shared pool)."""
@@ -260,3 +333,11 @@ def test_wrappers_reject_bad_inputs(dev, frames):
     coords = sift._window_coords(xy, sigma, theta, 0.75)
     with pytest.raises(ValueError):
         sift.sample_window(g_tall, coords, x0.int(), y0, row0, 48, 96)
+    a, b, T, ecam = verify_edge_inputs("nan_transform")
+    a, b = (pp.FrameCache(*(torch.as_tensor(x, device=dev) for x in side)) for side in (a, b))
+    T = torch.as_tensor(T, device=dev)
+    with pytest.raises(ValueError):
+        filters.dense_verify_sums(a, b, (T.double(),), CameraModel(*ecam), BC)
+    with pytest.raises(ValueError):
+        filters.dense_verify_sums(a, pp.FrameCache(*(f[:2] for f in (b.depth, b.points, b.normals, b.intensity,
+                                                                      b.grad))), (T,), CameraModel(*ecam), BC)

@@ -57,8 +57,9 @@ def test_offline_matching_matches_jax(capsys, tmp_path, args):
 def test_profile_stages_prints_every_line(capsys):
     times = profile_stages.main(["32", "24", "--tiny", "--device", "cpu", "--reps", "1"])
     out = capsys.readouterr().out
-    names = ["preprocess (K2)", "sift", "match_all_pairs", "filters", "local BA (GN+prune)", "process_chunk FULL",
-             "upd_keys_batch[9]", "upd_keys stride4", "union+allocate", "fuse_batch FULL (K1)"]
+    names = ["preprocess (K2)", "sift", "match_all_pairs", "filters", "dense_verify_filter (K5)",
+             "local BA (GN+prune)", "opt-verify (K5)", "process_chunk FULL", "upd_keys_batch[9]", "upd_keys stride4",
+             "union+allocate", "fuse_batch FULL (K1)"]
     assert list(times) == names and all(v > 0 for v in times.values())
     for name in names:
         assert f"\n{name}" in out, name
