@@ -7,6 +7,7 @@ keys into the keyframe's key set.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -19,6 +20,7 @@ from ..geometry.camera import CameraModel
 from ..ops.preprocess import FrameCache, preprocess_frames, preprocess_frames_y
 from ..solver import gn, residuals
 from ..utils.tensor_ops import top_k
+from ..utils.timeline import Stamps
 
 _INT32_MAX = 2**31 - 1
 
@@ -93,45 +95,52 @@ def process_chunk(
     sigma_d: float = 2.0,
     sigma_r: float = 0.1,
     filter_depth: bool = True,
+    stamps: Stamps | None = None,
 ) -> ChunkResult:
     """The whole local pipeline for one chunk, from the luma wire (ndim 3)
-    or from RGB (ndim 4); the two give different intensities by design."""
+    or from RGB (ndim 4); the two give different intensities by design.
+    With ``stamps`` (the pipeline's timeline) the device clock is stamped
+    around its parts ``sift``, ``pair_match`` and ``local_ba``; the rest
+    (the opt-verify, the key fusion) is the stage's own time."""
     s1 = depth_raw.shape[0]
     dev = depth_raw.device
+    span = stamps.span if stamps is not None else contextlib.nullcontext
     # only the filtered depth and the intensity are read below: no geometry
     prep = preprocess_frames_y if color.dim() == 3 else preprocess_frames
-    frames, cache = prep(
-        depth_raw, color, cam, cache_cam, sigma_d=sigma_d, sigma_r=sigma_r, filter_depth=filter_depth,
-        geometry=False,
-    )
-    keys = sift.detect_batch(frames.intensity, frames.depth, cam, cfg)
+    with span("sift"):
+        frames, cache = prep(
+            depth_raw, color, cam, cache_cam, sigma_d=sigma_d, sigma_r=sigma_r, filter_depth=filter_depth,
+            geometry=False,
+        )
+        keys = sift.detect_batch(frames.intensity, frames.depth, cam, cfg)
 
     # all pairs (a < b) in row-major order, made on the device (a tensor from
     # Python data would be a host->device copy and a sync per chunk)
     pairs_a, pairs_b = torch.triu_indices(s1, s1, offset=1, device=dev)
-    m = matcher.match_all_pairs(keys, pairs_a, pairs_b, cfg)
-    pa, pb = matcher.gather_match_points(keys, pairs_a, pairs_b, m)
-    filt = filters.filter_pairs_batch(
-        pa, pb, m, cache.index(pairs_a), cache.index(pairs_b), cache_cam, cfg, cfg.min_matches_local
-    )
+    with span("pair_match"):
+        m = matcher.match_all_pairs(keys, pairs_a, pairs_b, cfg)
+        pa, pb = matcher.gather_match_points(keys, pairs_a, pairs_b, m)
+        filt = filters.filter_pairs_batch(
+            pa, pb, m, cache.index(pairs_a), cache.index(pairs_b), cache_cam, cfg, cfg.min_matches_local
+        )
 
-    # correspondences from the filtered matches
-    fm = filt.matches  # [P, Mf]
-    p_m = fm.valid.shape[1]
-    corrs = residuals.SparseCorrs(
-        img_a=torch.repeat_interleave(pairs_a, p_m),
-        img_b=torch.repeat_interleave(pairs_b, p_m),
-        p_a=keys.p3d[pairs_a[:, None], fm.idx_i].reshape(-1, 3),
-        p_b=keys.p3d[pairs_b[:, None], fm.idx_j].reshape(-1, 3),
-        weight=(fm.valid & filt.pair_valid[:, None]).reshape(-1).to(torch.float32),
-    )
-    # cap the local sparse system at the configured residual capacity,
-    # keeping the best-descriptor-distance correspondences
-    if corrs.weight.shape[0] > cfg.max_residuals_local:
-        score = torch.where(corrs.weight > 0, -fm.dist.reshape(-1), -torch.inf)
-        _, keep = top_k(score, cfg.max_residuals_local)
-        corrs = corrs.index(keep)
-        corrs = dataclasses.replace(corrs, weight=torch.where(torch.isfinite(score[keep]), corrs.weight, 0.0))
+        # correspondences from the filtered matches
+        fm = filt.matches  # [P, Mf]
+        p_m = fm.valid.shape[1]
+        corrs = residuals.SparseCorrs(
+            img_a=torch.repeat_interleave(pairs_a, p_m),
+            img_b=torch.repeat_interleave(pairs_b, p_m),
+            p_a=keys.p3d[pairs_a[:, None], fm.idx_i].reshape(-1, 3),
+            p_b=keys.p3d[pairs_b[:, None], fm.idx_j].reshape(-1, 3),
+            weight=(fm.valid & filt.pair_valid[:, None]).reshape(-1).to(torch.float32),
+        )
+        # cap the local sparse system at the configured residual capacity,
+        # keeping the best-descriptor-distance correspondences
+        if corrs.weight.shape[0] > cfg.max_residuals_local:
+            score = torch.where(corrs.weight > 0, -fm.dist.reshape(-1), -torch.inf)
+            _, keep = top_k(score, cfg.max_residuals_local)
+            corrs = corrs.index(keep)
+            corrs = dataclasses.replace(corrs, weight=torch.where(torch.isfinite(score[keep]), corrs.weight, 0.0))
 
     # initial local poses: chain the consecutive pairwise filter transforms
     # index of pair (i, i+1) in the row-major enumeration
@@ -151,11 +160,12 @@ def process_chunk(
         dense_pair_active=filt.pair_valid,
         free_mask=torch.arange(s1, device=dev) > 0,
     )
-    solved, problem, stats, _ = gn.solve_and_prune(
-        init_traj, problem, cache, cache_cam, cfg,
-        gn_iters=cfg.local_gn_iters, pcg_iters=cfg.local_pcg_iters,
-        use_dense=cfg.use_dense_local, prune_rounds=2,
-    )
+    with span("local_ba"):
+        solved, problem, stats, _ = gn.solve_and_prune(
+            init_traj, problem, cache, cache_cam, cfg,
+            gn_iters=cfg.local_gn_iters, pcg_iters=cfg.local_pcg_iters,
+            use_dense=cfg.use_dense_local, prune_rounds=2,
+        )
 
     # chunk validity: the consecutive chain must hold and the solved
     # consecutive poses must pass dense verification (verifyOpt)

@@ -53,6 +53,13 @@ pipeline takes an idle one and resets its state in place, as a new JAX
 pipeline reuses jit's programs. ``utils/graphs.disable_graphs()`` runs the
 step eagerly on a card.
 
+Each chunk leaves a timeline (``utils/timeline.py``): every stage's
+program stamps the device clock as its first and last node, at the row of
+``step.chunk`` (``chunk_local`` also around its parts, the upload on the
+copy stream), and the host keeps the chunk's spans (ingest, waits, wire
+copy, each stage's enqueue); ``finalize()`` places the stamps on the host
+clock and emits both with the runlog records.
+
 Three places read device state on the host by design, as in the JAX
 package: the out-of-core streaming check (every ``streaming_check_every``
 chunks until streaming engages, then every chunk), the optional periodic
@@ -96,7 +103,7 @@ from ..geometry.camera import CameraModel
 from ..io import framewire
 from ..ops.preprocess import wire_depth_to_m
 from ..utils.logging import RunLog
-from ..utils import graphs
+from ..utils import graphs, timeline
 from ..utils.tensor_ops import copy_into, put_row, row, set_drop
 from ..utils.timing import TimingLog
 from . import chunk as chunk_mod
@@ -305,6 +312,7 @@ class FusionState:
     local_trajs: torch.Tensor  # [Cmax, S + 1, 4, 4] each chunk's local poses
     chunk_valid: torch.Tensor  # [Cmax] bool
     runlog_rows: torch.Tensor  # [Cmax + 1, RUNREC_WIDTH], read once at finalize
+    stamps: torch.Tensor  # [Cmax + 1, 2 * len(timeline.SPANS)] int64 device clock, read once at finalize
     blocks_updated: torch.Tensor  # f32, measured work counter
     gc_freed_total: torch.Tensor  # f32
 
@@ -339,6 +347,7 @@ def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, in
         local_trajs=torch.eye(4, device=dev).repeat(max_chunks, bc.chunk_size, 1, 1),
         chunk_valid=torch.zeros(max_chunks, dtype=torch.bool, device=dev),
         runlog_rows=torch.zeros((max_chunks + 1, RUNREC_WIDTH), device=dev),
+        stamps=timeline.make_table(max_chunks + 1, dev),
         blocks_updated=torch.zeros((), device=dev),
         gc_freed_total=torch.zeros((), device=dev),
     )
@@ -434,13 +443,15 @@ def _plan_and_fuse(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step: 
     put_row(st.runlog_rows, step.chunk, stats)
 
 
-def _chunk_local(wire, cam: CameraModel, cache_cam: CameraModel, bc, ac: AppConfig) -> chunk_mod.ChunkResult:
+def _chunk_local(wire, cam: CameraModel, cache_cam: CameraModel, bc, ac: AppConfig,
+                 stamps: timeline.Stamps | None = None) -> chunk_mod.ChunkResult:
     """Stage ``chunk_local``: the local pipeline on the chunk's wire (depth,
-    then luma, or RGB on the multi-sequence driver's v1 wire)."""
+    then luma, or RGB on the multi-sequence driver's v1 wire), its parts
+    stamped with ``stamps``."""
     return chunk_mod.process_chunk(
         wire[0], wire[1], cam, cache_cam, bc, sigma_d=ac.depth_sigma_d, sigma_r=ac.depth_sigma_r,
         # with integrate_filtered_depth the wire is already filtered
-        filter_depth=ac.depth_filter and not ac.integrate_filtered_depth,
+        filter_depth=ac.depth_filter and not ac.integrate_filtered_depth, stamps=stamps,
     )
 
 
@@ -459,6 +470,21 @@ def _gc(st: FusionState) -> None:
     table, freed = blocks.garbage_collect(st.table)
     copy_into(st.table, table)
     st.gc_freed_total.add_(freed.to(torch.float32))
+
+
+# rows of a stage's begin and end stamps, relative to step.chunk: plan_fuse
+# moves the step inputs to the next chunk before its end, gc runs after it
+_STAMP_ROWS = {"plan_fuse": (0, -1), "gc": (-1, -1)}
+
+
+def _stamped(fn, span: str, stamps: timeline.Stamps, *args):
+    """A stage's program: ``fn(*args)`` between the device stamps of
+    ``span``'s begin and end (its first and last nodes in a graph)."""
+    first, last = _STAMP_ROWS.get(span, (0, 0))
+    stamps.begin(span, first)
+    out = fn(*args)
+    stamps.end(span, last)
+    return out
 
 
 @dataclass
@@ -800,6 +826,8 @@ class BundleFusion:
         # the upload's own stream (copy and unpack overlap the chunk step)
         self._stream = self._exe.stream
         self._copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if self._copy_stream is not None:
+            self._copy_stream.wait_stream(self._stream)  # the reset state (its stamps) before the first upload
         self._finalized = False
         self._reloc_seen = 0  # relocalizations already followed by a revalidation
         # out-of-core streaming: cold blocks live in the host store; the
@@ -807,7 +835,14 @@ class BundleFusion:
         # streaming_check_every chunks until streaming engages, then every chunk
         self.block_store = streaming.HostBlockStore(chunk_blocks=ac.streaming_chunk_blocks)
         self._streaming_on = False
+        # the per-chunk timeline (utils/timeline.py): device stamps in the
+        # state (each stage's program stamps where step.chunk points), host
+        # spans by chunk here; joined into the runlog at finalize(), where
+        # the stamped stages' device times also go to the TimingLog
         self.timing = TimingLog(dev)
+        self._stamps = timeline.Stamps(self.state.stamps, self._step.chunk)
+        self._host = timeline.HostSpans()
+        self._ingest_waited = 0.0  # main thread: seconds of the current push_frame spent waiting or dispatching
         self.runlog = RunLog(log_path)
 
     def _checkout_executable(self) -> graphs.Executable:
@@ -855,27 +890,35 @@ class BundleFusion:
         bilateral-filtered there, so the ring, the FrameStore and every
         device program see the same bytes; with a separate integration
         resolution, depth and colour are also decimated for fusion) and
-        upload once per chunk."""
+        upload once per chunk. The time busy here, waits and (without the
+        ingest workers) the chunk step left out, is the chunk's ``ingest_s``
+        in its timeline, and the entry of its last frame its ``pushed``."""
+        t0 = time.perf_counter()
+        c = self._chunk_of(self._next_fid)
+        self._host.put(c, "pushed", t0)
+        self._ingest_waited = 0.0
         ac = self.config.app
         cf, h, w = self.chunk_frames, self.cam.height, self.cam.width
-        row = self._next_fid % cf
-        if row == 0 or not self._fs_slabs:
-            # (no slab at row != 0: a pipeline restored from a checkpoint
-            # mid-chunk starts partway into a fresh slab)
-            self._fs_slabs += _staging_checkout(
-                self, (((cf, h, w), np.uint16), ((cf, h, w), np.uint8), ((cf, h // 2, w // 2, 3), np.uint8)), 1
-            )
-        slab_d, slab_y, slab_c = self._fs_slabs[-1].arrays
-        d16, y8, c8h = framewire.frame_to_wire2(depth, color, out=(slab_d[row], slab_y[row], slab_c[row]),
-                                                depth_min=ac.depth_min, depth_max=ac.depth_max)
-        if ac.integrate_filtered_depth:
-            d16 = framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
-        sy, sx = self._int_step
-        d16i, c8hi = (d16, c8h) if (sy, sx) == (1, 1) else (d16[::sy, ::sx], c8h[::sy, ::sx])
-        self._frame_store[self._next_fid] = (d16i, c8hi)
-        self._next_fid += 1
-        self._pending.append((d16, y8, c8h, d16i, c8hi))
-        self._maybe_process_chunk()
+        with torch.profiler.record_function("ingest"):
+            row = self._next_fid % cf
+            if row == 0 or not self._fs_slabs:
+                # (no slab at row != 0: a pipeline restored from a checkpoint
+                # mid-chunk starts partway into a fresh slab)
+                self._fs_slabs += _staging_checkout(
+                    self, (((cf, h, w), np.uint16), ((cf, h, w), np.uint8), ((cf, h // 2, w // 2, 3), np.uint8)), 1
+                )
+            slab_d, slab_y, slab_c = self._fs_slabs[-1].arrays
+            d16, y8, c8h = framewire.frame_to_wire2(depth, color, out=(slab_d[row], slab_y[row], slab_c[row]),
+                                                    depth_min=ac.depth_min, depth_max=ac.depth_max)
+            if ac.integrate_filtered_depth:
+                d16 = framewire.bilateral_wire(d16, ac.depth_sigma_d, ac.depth_sigma_r)
+            sy, sx = self._int_step
+            d16i, c8hi = (d16, c8h) if (sy, sx) == (1, 1) else (d16[::sy, ::sx], c8h[::sy, ::sx])
+            self._frame_store[self._next_fid] = (d16i, c8hi)
+            self._next_fid += 1
+            self._pending.append((d16, y8, c8h, d16i, c8hi))
+            self._maybe_process_chunk()
+        self._host.add(c, "ingest_s", time.perf_counter() - t0 - self._ingest_waited)
 
     def push_batch(self, depth: np.ndarray, color: np.ndarray, valid=None) -> None:
         for i in range(depth.shape[0]):
@@ -891,25 +934,41 @@ class BundleFusion:
         with self._waits_lock:
             self.ingest_waits[site] += 1
 
-    def _wait_event(self, event, site: str) -> None:
-        """Wait on the host for a CUDA event (work already enqueued; no data
-        comes back), counting the waits that blocked by site."""
-        if not event.query():
-            self._count_wait(site)
-            event.synchronize()
+    def _wait(self, c: int, site: str, wait) -> float:
+        """A host wait of the ingest (``wait()``) that blocks: counted by
+        site, and chunk ``c``'s span ``wait.<site>``. Returns its seconds."""
+        self._count_wait(site)
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(f"wait.{site}"):
+            wait()
+        t1 = time.perf_counter()
+        self._host.interval(c, f"wait.{site}", t0, t1)
+        return t1 - t0
 
-    def _maybe_process_chunk(self) -> None:
+    def _wait_event(self, event, site: str, c: int) -> float:
+        """Wait on the host for a CUDA event (work already enqueued; no data
+        comes back) if it has not completed (:meth:`_wait`). Returns the
+        seconds waited."""
+        return 0.0 if event.query() else self._wait(c, site, event.synchronize)
+
+    def _chunk_of(self, fid: int) -> int:
+        """The chunk whose new frames hold frame ``fid``: chunk c's are c*S + 1
+        .. c*S + S (chunk 0's from frame 0)."""
+        return max(0, (fid - 1) // self.S)
+
+    def _maybe_process_chunk(self, flush: bool = False) -> None:
         # chunk c consumes frames [c*S, c*S + S]; the overlap frame c*S stays
         # at the head of _pending for the next chunk
         while len(self._pending) >= self.chunk_frames:
             first = self._chunks_staged == 0
+            c = self._chunk_of(self._next_fid - len(self._pending) + self.chunk_frames - 1)  # of its last frame
             buf = self._stage_full if first else self._stage[self._stage_rot]
             # the rotation came back to this buffer: its last copy must be done
             if buf.upload is not None and not buf.upload.done():
-                self._count_wait("staging")
-                concurrent.futures.wait([buf.upload])
+                self._ingest_waited += self._wait(c, "staging", functools.partial(concurrent.futures.wait,
+                                                                                  [buf.upload]))
             if buf.copied is not None:
-                self._wait_event(buf.copied, "staging")
+                self._ingest_waited += self._wait_event(buf.copied, "staging", c)
             lo = 0 if first else 1  # after chunk 0 the overlap row is on the device
             views = _wire_views(buf.arrays[0], self.chunk_frames - lo, *self._wire_dims)
             for i, r in enumerate(self._pending[lo : self.chunk_frames]):
@@ -922,42 +981,62 @@ class BundleFusion:
                 self._stage_rot = (self._stage_rot + 1) % _STAGING_DEPTH
             self._chunks_staged += 1
             self.upload_bytes.append(buf.flat.numel())
-            upload = functools.partial(self._upload, buf, first)
+            if flush:
+                self._host.put(c, "flush", True)
+            upload = functools.partial(self._upload, buf, first, c)
             if self._async_ingest:
                 buf.upload = _executor("upload").submit(upload)
-                self._bound_runahead()
-                self._chunk_futs.append(_executor("dispatch").submit(lambda f=buf.upload: self._dispatch(f.result())))
+                self._ingest_waited += self._bound_runahead(c)
+                self._chunk_futs.append(_executor("dispatch").submit(self._dispatch_uploaded, buf.upload, c))
             else:
-                self._dispatch(upload())
+                t0 = time.perf_counter()
+                self._dispatch(upload(), c)
+                self._ingest_waited += time.perf_counter() - t0
             self._pending = self._pending[self.S :]
 
-    def _bound_runahead(self) -> None:
+    def _bound_runahead(self, c: int) -> float:
         """Drop dispatched chunks from the head of the futures (a failed one
         stays for sync() to raise), and wait while too many chunks are
-        staged but not dispatched."""
+        staged but not dispatched (chunk ``c`` the last). Returns the
+        seconds waited."""
         while self._chunk_futs and self._chunk_futs[0].done() and self._chunk_futs[0].exception() is None:
             self._chunk_futs.pop(0)
         waiting = [f for f in self._chunk_futs if not f.done()]
-        if len(waiting) >= _MAX_UNDISPATCHED:
-            self._count_wait("runahead")
-            concurrent.futures.wait(waiting[: len(waiting) - _MAX_UNDISPATCHED + 1])
+        if len(waiting) < _MAX_UNDISPATCHED:
+            return 0.0
+        return self._wait(c, "runahead", functools.partial(concurrent.futures.wait,
+                                                           waiting[: len(waiting) - _MAX_UNDISPATCHED + 1]))
 
-    def _upload(self, buf: _HostBuf, first: bool):
-        """The upload stage, on the copy stream: one copy of a staged chunk
-        to the device (the buffer's ``copied`` event marks its end on a
-        card), then the device unpack. After chunk 0 the overlap row comes
-        from the previous chunk's last row. Returns (depth [cf, H, W] int16,
-        luma [cf, H, W], colour [cf, H/2, W/2, 3], then depth and colour at
-        the integration resolution), and on a card the event that marks the
-        unpack's end."""
+    @contextlib.contextmanager
+    def _chunk_stage(self, name: str, c: int):
+        """Stage ``name`` of chunk ``c`` on the host: a ``TimingLog`` stage,
+        whose enqueue is chunk ``c``'s host span ``name``."""
+        t0 = time.perf_counter()
+        # the stage's device time is recorded from its stamps at finalize(),
+        # but where profile times it on the host
+        with self.timing.stage(name, block=self.profile, record=self.profile):
+            yield
+        self._host.interval(c, name, t0, time.perf_counter())
+
+    def _upload(self, buf: _HostBuf, first: bool, c: int):
+        """The upload stage of chunk ``c``, on the copy stream: one copy of a
+        staged chunk to the device (stamped on the copy stream; the buffer's
+        ``copied`` event marks its end on a card), then the device unpack.
+        After chunk 0 the overlap row comes from the previous chunk's last
+        row. Returns (depth [cf, H, W] int16, luma [cf, H, W], colour [cf,
+        H/2, W/2, 3], then depth and colour at the integration resolution),
+        and on a card the event that marks the unpack's end."""
+        col = timeline.COLUMN["upload"]
         with self._device_ctx(self._copy_stream):
-            with self.timing.stage("upload", block=self.profile):
+            with self._chunk_stage("upload", c):
+                timeline.stamp(self.state.stamps, col, host_row=c)
                 if self._stream is None:
                     flat = buf.flat.clone()  # the buffer is refilled once this returns
                 else:
                     flat = buf.flat.to(self.device, non_blocking=True)
                     buf.copied = torch.cuda.Event()
                     buf.copied.record()
+                timeline.stamp(self.state.stamps, col + 1, host_row=c)
             new = _unpack_wire(flat, self.chunk_frames - (0 if first else 1), *self._wire_dims)
             if first:
                 full = new
@@ -975,23 +1054,32 @@ class BundleFusion:
             ready.record()
             return full, ready
 
-    def _dispatch(self, uploaded) -> None:
-        """The dispatch stage: run the chunk step on an uploaded chunk
+    def _dispatch_uploaded(self, upload: concurrent.futures.Future, c: int) -> None:
+        """The dispatch worker's task: wait for chunk ``c``'s upload (its
+        host span ``wait.upload``), then dispatch it."""
+        with self._host.span(c, "wait.upload"):
+            uploaded = upload.result()
+        self._dispatch(uploaded, c)
+
+    def _dispatch(self, uploaded, c: int) -> None:
+        """The dispatch stage: run the chunk step on uploaded chunk ``c``
         (:meth:`_upload`'s result), once the compute stream has waited for
-        its copy."""
+        its copy. The chunk's timeline notes whether a profiler was
+        recording."""
+        self._host.put(c, "profiled", timeline.profiler_active())
         views, ready = uploaded
         with self._device_ctx():
             if ready is not None:
                 self._stream.wait_event(ready)
-            self._process_chunk(*views)
+            self._process_chunk(*views, c)
 
     # ------------------------------------------------------------------
     # core per-chunk step
     # ------------------------------------------------------------------
 
     def _process_chunk(self, d_wire: torch.Tensor, y_wire: torch.Tensor, c_wire: torch.Tensor,
-                       d_wire_int: torch.Tensor, c_wire_int: torch.Tensor) -> None:
-        """One chunk's step. Its stages run as the JAX package's programs
+                       d_wire_int: torch.Tensor, c_wire_int: torch.Tensor, c: int) -> None:
+        """Chunk ``c``'s step. Its stages run as the JAX package's programs
         do, each through the executable's program of its name
         (:meth:`_run`); chunk 0's graph step is the ``graph_step_first``
         program (the JAX package's ``is_first`` program). The stages read
@@ -999,7 +1087,6 @@ class BundleFusion:
         the state in place."""
         bc = self.config.bundling
         ac = self.config.app
-        c = self.chunk_count
         if c >= min(self.max_chunks, bc.max_num_images):
             raise ValueError(f"chunk {c} exceeds the keyframe/chunk capacity")
         first_frame = c * self.S
@@ -1007,30 +1094,31 @@ class BundleFusion:
         t_chunk = time.perf_counter()
         # backpressure: the host dispatches at most ~2 chunks ahead of the device
         if len(self._bp_events) >= 2 and not self.profile:
-            self._wait_event(self._bp_events.pop(0), "backpressure")
+            self._wait_event(self._bp_events.pop(0), "backpressure", c)
         # the chunk's wire into the static buffers (the last two alias the
         # first and third at one resolution); the step inputs are set from
         # the host only when they do not hold chunk c (a restored pipeline)
-        copied: set[int] = set()
-        for dst, src in zip(wire, (d_wire, y_wire, c_wire, d_wire_int, c_wire_int)):
-            if id(dst) not in copied:
-                dst.copy_(src)
-                copied.add(id(dst))
-        if self._step_chunk != c:
-            copy_into(step, step_inputs(c, self.S, self.chunk_frames, self.device))
+        with self._host.span(c, "wire"):
+            copied: set[int] = set()
+            for dst, src in zip(wire, (d_wire, y_wire, c_wire, d_wire_int, c_wire_int)):
+                if id(dst) not in copied:
+                    dst.copy_(src)
+                    copied.add(id(dst))
+            if self._step_chunk != c:
+                copy_into(step, step_inputs(c, self.S, self.chunk_frames, self.device))
         first = c == 0
 
-        with self.timing.stage("chunk_local", block=self.profile):
-            res = self._run("chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac)
+        with self._chunk_stage("chunk_local", c):
+            res = self._run("chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac, self._stamps)
         self.gn_iters_executed += bc.local_gn_iters * 2  # 2 solve+prune rounds
 
-        with self.timing.stage("graph_step", block=self.profile):
+        with self._chunk_stage("graph_step", c):
             self._run("graph_step_first" if first else "graph_step", _graph_step, st, step, res, self.cache_cam, bc,
                       first, carry)
         self.num_keyframes = c + 1  # one keyframe per chunk
 
         if self.num_keyframes > 1:
-            with self.timing.stage("global_solve", block=self.profile):
+            with self._chunk_stage("global_solve", c):
                 if self.mesh is None:
                     self._run("global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
                 else:
@@ -1038,17 +1126,17 @@ class BundleFusion:
                               self.cache_cam, bc)
             self.gn_iters_executed += bc.global_gn_iters
 
-        with self.timing.stage("publish", block=self.profile):
+        with self._chunk_stage("publish", c):
             self._run("publish", _publish_all, st, self.S, self.chunk_frames)
 
         self.num_frames = max(self.num_frames, first_frame + self.chunk_frames)
-        with self.timing.stage("plan_fuse", block=self.profile):
+        with self._chunk_stage("plan_fuse", c):
             self._run("plan_fuse", _plan_fuse_step, st, ac, self.int_cam, step, carry, wire[3], wire[4],
                       ac.max_reintegrations_per_frame * self.S, self.S)
         self._step_chunk = c + 1
 
         if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
-            with self.timing.stage("gc", block=self.profile):
+            with self._chunk_stage("gc", c):
                 self._run("gc", _gc, st)
 
         # out-of-core streaming: evict far blocks, restore near ones
@@ -1070,15 +1158,18 @@ class BundleFusion:
             self._bp_events.append(torch.cuda.Event())
             self._bp_events[-1].record()
         self.timing.record("whole_chunk_step", time.perf_counter() - t_chunk)
-        self.chunk_count += 1
+        self.chunk_count = c + 1
 
     def _run(self, name: str, fn, *args):
         """Stage ``name`` of the chunk step, through the executable's program
         of that name, which on a card captures at its first call and then
         replays (``graphs.Program``) unless this pipeline was built under
         ``graphs.disable_graphs()`` or routes the stage eagerly
-        (``graph_stats``' ``route``)."""
-        return self._exe.program(name, fn)(*args, graphed=self._graphed and name not in self._routes)
+        (``graph_stats``' ``route``). The program stamps the stage's begin
+        and end on the device (:func:`_stamped`)."""
+        span = "graph_step" if name == "graph_step_first" else name
+        program = self._exe.program(name, functools.partial(_stamped, fn, span))
+        return program(self._stamps, *args, graphed=self._graphed and name not in self._routes)
 
     def _streaming_step(self, k_idx: int, c: int) -> None:
         """Stream near host blocks in, then (past the occupancy watermark)
@@ -1225,7 +1316,7 @@ class BundleFusion:
                 self._frame_store[self._next_fid] = last_host
                 self._next_fid += 1
                 self._pending.append(last)
-            self._maybe_process_chunk()
+            self._maybe_process_chunk(flush=True)
         self.sync()
 
     def sync(self) -> None:
@@ -1263,7 +1354,14 @@ class BundleFusion:
         self.sync()
 
     def _emit_runlog(self) -> None:
+        """The runlog's per-chunk records, read from the device once. Each
+        chunk this pipeline ran gets its ``timeline`` (the device stamps
+        placed on the host clock here, with its host spans), and, unless
+        ``profile`` timed the stages on the host, its stamped stages' device
+        times go to the TimingLog."""
         rows = self.state.runlog_rows[: self.chunk_count].cpu().numpy()
+        stamps = self.state.stamps[: self.chunk_count].cpu().numpy()
+        offset_ns, err_ns = timeline.calibrate(self.device)
         ints = ("num_keys", "filtered_matches", "pairs_valid", "corr_cursor", "alloc_overflow",
                 "upd_truncated", "patch_overflow", "reint_frames", "ring_miss", "blocks_touched",
                 "active_blocks", "lost_chunks", "gc_freed_total")
@@ -1273,6 +1371,11 @@ class BundleFusion:
                 rec[k] = int(rec[k])
             for k in ("chunk_valid", "kf_valid", "reloc", "tracking_lost"):
                 rec[k] = bool(rec[k])
+            if c in self._host.by_chunk:  # a chunk this pipeline ran (not one restored)
+                rec["timeline"] = timeline.chunk_record(stamps[c], self._host.by_chunk[c], offset_ns, err_ns)
+                for span, (b, e) in rec["timeline"]["device"].items():
+                    if span not in timeline.CHILDREN and not self.profile:
+                        self.timing.record(span, e - b)
             self.runlog.log(chunk=c, **rec)
         if self._ring_uploads:
             self.runlog.log(ring_uploads=self._ring_uploads)

@@ -231,7 +231,7 @@ def dense_verify_sums(cache_a: FrameCache, cache_b: FrameCache, transforms: tupl
         kernels.stream_ptr(cache_a.depth.device),
     )
     kernels.check(err, "dense_verify")
-    dense_verify_sums.launches += 1
+    kernels.launched(dense_verify_sums)
     return out.reshape(len(transforms), *lead, 4)
 
 

@@ -265,7 +265,7 @@ def sample_window(g_tall: torch.Tensor, coords: torch.Tensor, x0: torch.Tensor, 
         _PATCH - 1.001, kernels.stream_ptr(g_tall.device),
     )
     kernels.check(err, "sift_sample")
-    sample_window.launches += 1
+    kernels.launched(sample_window)
     return gx, gy, mask
 
 

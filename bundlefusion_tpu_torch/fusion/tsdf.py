@@ -316,7 +316,7 @@ def _launch_fuse(table: BlockTable, rows: FuseRows, union: torch.Tensor, depths:
         kernels.stream_ptr(depths.device),
     )
     kernels.check(err, "tsdf_fuse")
-    integrate_blocks.launches += 1
+    kernels.launched(integrate_blocks)
 
 
 def patch_overflow_count(

@@ -19,6 +19,7 @@ import functools
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -26,7 +27,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("tsdf_integrate.cu", "preprocess.cu", "assemble.cu", "sift_sample.cu", "dense_verify.cu")
+SOURCES = ("tsdf_integrate.cu", "preprocess.cu", "assemble.cu", "sift_sample.cu", "dense_verify.cu", "stamp.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "libbf_kernels.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "bf_assemble_scratch_bytes": [_I, _I],
     "bf_sift_sample": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P],
     "bf_dense_verify": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 3 + [_I] * 4 + [_F] * 13 + [_P],
+    "bf_stamp": [_P, _P] + [_I] * 5 + [_P],
 }
 _RESTYPES = {"bf_assemble_scratch_bytes": _L}  # every other function returns its cudaError
 
@@ -107,6 +109,8 @@ def library() -> ctypes.CDLL:
 # the kernel wrappers, each counting its kernel's launches in ``.launches``
 # (a captured CUDA graph adds its kernels' launches at every replay)
 COUNTED: list = []
+_COUNT_LOCK = threading.Lock()  # wrappers launch from several threads (the pipeline's ingest workers)
+_TALLY = threading.local()
 
 
 def counted(fn):
@@ -114,6 +118,27 @@ def counted(fn):
     fn.launches = 0
     COUNTED.append(fn)
     return fn
+
+
+def launched(fn) -> None:
+    """Count one launch of ``fn``'s kernel: in ``fn.launches``, and in the
+    calling thread's tally, which a graph capture reads (the eager launches
+    another thread makes meanwhile are not the graph's)."""
+    add_launches({fn: 1})
+    tally = _TALLY.__dict__.setdefault("counts", {})
+    tally[fn] = tally.get(fn, 0) + 1
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` ({wrapper: launches}) to the wrappers' ``.launches``."""
+    with _COUNT_LOCK:
+        for fn, n in counts.items():
+            fn.launches += n
+
+
+def thread_launches() -> dict:
+    """The calling thread's launches so far, by wrapper."""
+    return dict(_TALLY.__dict__.get("counts", {}))
 
 
 def check(err: int, name: str) -> None:

@@ -258,7 +258,7 @@ def fused_preprocess(
         kernels.stream_ptr(depth.device),
     )
     kernels.check(err, "preprocess")
-    fused_preprocess.launches += 1
+    kernels.launched(fused_preprocess)
     return fdepth, points, normals
 
 

@@ -47,7 +47,7 @@ def assemble_system(num_images, pairs_a, pairs_b, JtJ_pairs, Jtr_pairs, free_mas
         1e-8, kernels.stream_ptr(dev),
     )
     kernels.check(err, "assemble")
-    assemble_system.launches += 1
+    kernels.launched(assemble_system)
     return H, b
 
 

@@ -42,9 +42,9 @@ capture or a replay that fails raises; nothing falls back to the eager step.
 
 Launch counts: a kernel wrapper registered with ``kernels.counted`` counts
 its launches in ``.launches``. The warm-up's launches count (they ran); a
-capture records the launches its function made and takes them back
-(nothing ran), and every replay adds them again, so the counts stay one per
-kernel launch on the device.
+capture records the launches its function made on the capturing thread
+and takes them back (nothing ran), and every replay adds them again, so the
+counts stay one per kernel launch on the device.
 """
 
 from __future__ import annotations
@@ -122,10 +122,6 @@ def _signature(args) -> tuple:
     )
 
 
-def _launch_counts() -> list[int]:
-    return [fn.launches for fn in kernels.COUNTED]
-
-
 class Program:
     """One stage of the step: ``fn(*args)`` run eagerly and captured at its
     first call on a card, replayed from then on. ``graphed=False`` (what an
@@ -140,7 +136,7 @@ class Program:
         self.replays = 0
         self.capture_s = 0.0
         self._signature: tuple | None = None
-        self._launches: list[int] = []
+        self._launches: dict = {}  # launches of each counted wrapper the graph makes
 
     def __call__(self, *args, graphed: bool = True):
         if not graphed:
@@ -155,8 +151,7 @@ class Program:
                                "(a state tensor was rebound, not updated in place)")
         self.graph.replay()
         self.replays += 1
-        for fn, n in zip(kernels.COUNTED, self._launches):
-            fn.launches += n
+        kernels.add_launches(self._launches)
         return self.outputs
 
     def _capture(self, args, eager) -> None:
@@ -164,7 +159,7 @@ class Program:
         ``eager``'s tensors (the outputs), so nothing it returns lives in the
         pool."""
         t0 = time.perf_counter()
-        before = _launch_counts()
+        before = kernels.thread_launches()
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
         try:
@@ -177,9 +172,8 @@ class Program:
             raise
         graph.capture_end()
         # the capture launched nothing: take back what the wrappers counted
-        self._launches = [a - b for a, b in zip(_launch_counts(), before)]
-        for fn, n in zip(kernels.COUNTED, self._launches):
-            fn.launches -= n
+        self._launches = {fn: n - before.get(fn, 0) for fn, n in kernels.thread_launches().items()}
+        kernels.add_launches({fn: -n for fn, n in self._launches.items()})
         self.graph, self.outputs, self._signature = graph, eager, _signature(args)
         self.capture_s = time.perf_counter() - t0
 

@@ -1,16 +1,16 @@
 """Per-stage timing accumulators (port of ``bundlefusion_tpu.utils.timing``).
 
-On a CUDA device a stage is bracketed by two ``torch.cuda.Event``s recorded
-on the current stream: the stage costs no host sync, and its time is the
-device's, resolved when :meth:`TimingLog.summary` is read. On the CPU the
-host clock is used. Each stage is also a ``torch.profiler.record_function``
-span of its name. ``stage(name, block=True)`` waits for the device at the
-stage's end and records the host clock from its start to then, as the JAX
-package's ``block=`` does: with every stage ending so, the device is idle
-when a stage starts, and a stage's time is really that stage's.
+Each stage is a ``torch.profiler.record_function`` span of its name and
+records the host clock around it. ``stage(name, record=False)`` records
+nothing: its caller records the stage's device time itself (the pipeline,
+at ``finalize()``, from the stamps of its per-chunk timeline,
+``utils/timeline.py``), so that it costs no host sync and no event.
+``stage(name, block=True)`` waits for the device at the stage's end and
+records the host clock from its start to then, as the JAX package's
+``block=`` does: with every stage ending so, the device is idle when a
+stage starts, and a stage's time is really that stage's.
 
-Stages may be timed from several threads (the pipeline's ingest workers);
-summaries are read after those threads are drained.
+Stages may be timed from several threads (the pipeline's ingest workers).
 """
 
 from __future__ import annotations
@@ -31,32 +31,21 @@ class TimingLog:
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self.maxes: dict[str, float] = defaultdict(float)
-        self._pending: list[tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
         self._lock = threading.Lock()
 
     @contextlib.contextmanager
-    def stage(self, name: str, block: bool = False):
+    def stage(self, name: str, block: bool = False, record: bool = True):
         with torch.profiler.record_function(name):
-            if self.cuda and not block:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                try:
-                    yield
-                finally:
-                    end.record()
-                    with self._lock:
-                        self._pending.append((name, start, end))
-                return
             t0 = time.perf_counter()
             try:
                 yield
             finally:
-                if self.cuda:
+                if block and self.cuda:
                     done = torch.cuda.Event()
                     done.record()
                     done.synchronize()
-                self.record(name, time.perf_counter() - t0)
+                if record:
+                    self.record(name, time.perf_counter() - t0)
 
     def record(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -64,25 +53,17 @@ class TimingLog:
             self.counts[name] += 1
             self.maxes[name] = max(self.maxes[name], seconds)
 
-    def _resolve(self) -> None:
-        """Fold the recorded event pairs into the totals (waits for them)."""
-        with self._lock:
-            pending, self._pending = self._pending, []
-        for name, start, end in pending:
-            end.synchronize()
-            self.record(name, start.elapsed_time(end) * 1e-3)
-
     def summary(self) -> dict[str, dict[str, float]]:
-        self._resolve()
-        return {
-            k: {
-                "total_s": self.totals[k],
-                "count": self.counts[k],
-                "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1),
-                "max_ms": 1e3 * self.maxes[k],
+        with self._lock:
+            return {
+                k: {
+                    "total_s": self.totals[k],
+                    "count": self.counts[k],
+                    "mean_ms": 1e3 * self.totals[k] / max(self.counts[k], 1),
+                    "max_ms": 1e3 * self.maxes[k],
+                }
+                for k in sorted(self.totals)
             }
-            for k in sorted(self.totals)
-        }
 
     def report(self) -> str:
         lines = [f"{'stage':<24}{'count':>7}{'mean ms':>10}{'max ms':>10}{'total s':>10}"]

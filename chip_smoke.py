@@ -1185,7 +1185,117 @@ def check_kernels(torch, T, dev):
     k4 = check_k4(torch, dev)
     torch.cuda.empty_cache()
     k5 = check_k5(torch, dev, cache, poses, cache_cam)
+    check_stamps(torch, dev)
     return [k1, k2, k3, k4, k5]
+
+
+def stamped_chunk(s) -> None:
+    """One chunk's device stamps as the pipeline's stage programs make them
+    (``pipeline._stamped``, with its row offsets): each stage's begin and
+    end, ``chunk_local``'s three parts inside it, and ``plan_fuse``
+    advancing the chunk tensor before its end, as ``advance_step`` does."""
+    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.utils import timeline
+
+    def parts(s):
+        for name in timeline.CHILDREN:
+            with s.span(name):
+                pass
+
+    work = {"chunk_local": parts, "plan_fuse": lambda s: s.row.add_(1)}
+    for span in timeline.STAGES:
+        pipe._stamped(work.get(span, lambda s: None), span, s, s)
+
+
+def stamp_run(torch, dev, rows: int, starts: list[int], stream=None, copy=None, program=None) -> dict:
+    """``stamped_chunk`` for a chunk at each row of ``starts`` (the chunk
+    tensor set from the host before it), each after an eager upload stamp
+    at that row from the host: on ``dev`` through ``program`` (a captured
+    graph) on ``stream``, the upload on ``copy``, the two streams made to
+    wait on each other so that the stamps keep one order; on the CPU in
+    turn. Returns the table, the host clock (ns) just before each chunk's
+    first stamp and just after its last, and the stamps launched."""
+    from bundlefusion_tpu_torch.utils import timeline
+
+    table = timeline.make_table(rows, dev)
+    s = timeline.Stamps(table, torch.zeros((), dtype=torch.int32, device=dev))
+    col = timeline.COLUMN["upload"]
+    cuda = dev.type == "cuda"
+    if cuda:  # the warm-up run and the capture, then a clean table
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            program(s)
+            table.zero_()
+        torch.cuda.synchronize()
+    launches = timeline.stamp.launches
+    windows = []
+    for r in starts:
+        t0 = time.perf_counter_ns()
+        with torch.cuda.stream(copy) if cuda else contextlib.nullcontext():
+            if cuda:
+                copy.wait_stream(stream)
+            timeline.stamp(table, col, host_row=r)
+            timeline.stamp(table, col + 1, host_row=r)
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            if cuda:
+                stream.wait_stream(copy)
+                s.row.fill_(r)
+                program(s)
+                stream.synchronize()
+            else:
+                s.row.fill_(r)
+                stamped_chunk(s)
+        windows.append((t0, time.perf_counter_ns()))
+    return dict(table=table.cpu().numpy(), windows=windows, launches=timeline.stamp.launches - launches)
+
+
+def check_stamps(torch, dev) -> dict:
+    """Phase 3: the timeline's stamp kernel (``csrc/stamp.cu``) against its
+    CPU twin at the main path's table shape [Cmax + 1, 20]: one chunk's
+    stamps as the pipeline makes them (``stamped_chunk``), captured once in
+    a CUDA graph and replayed for chunks at rows 0-2, then at the last
+    chunk's row, the scratch row and past the table's end and before its
+    start, each after an eager upload stamp on a copy stream at a row from
+    the host. The cells written equal the twin's on the same rows; the
+    stamps rise in the order the twin wrote them; each chunk's stamps,
+    placed on the host clock by ``timeline.calibrate``, lie within its
+    half-width of the host's clock around that chunk; the launches count
+    2 per stage, 6 for ``chunk_local``'s parts and 2 for the upload a
+    chunk."""
+    from bundlefusion_tpu_torch.utils import graphs, timeline
+
+    bc = flagship_config().bundling
+    rows = bc.max_frames // bc.submap_size + 1
+    starts = [0, 1, 2, rows - 2, rows - 1, rows, rows + 5, -3]
+    exe = graphs.Executable(dev, None)
+    copy = torch.cuda.Stream(dev)
+    program = exe.program("stamps", stamped_chunk)
+    card = stamp_run(torch, dev, rows, starts, exe.stream, copy, program)
+    offset_ns, err_ns = timeline.calibrate(dev)
+    twin = stamp_run(torch, torch.device("cpu"), rows, starts)
+    per_chunk = 2 * len(timeline.STAGES) + 2 * len(timeline.CHILDREN) + 2
+    cells = sorted(zip(*np.nonzero(twin["table"])), key=lambda rc: twin["table"][rc])  # in the order written
+    card_cells = set(zip(*np.nonzero(card["table"])))
+    rising = [int(card["table"][rc]) for rc in cells]
+
+    def chunk_of(t_ns, windows):
+        return next(i for i, (a, b) in enumerate(windows) if a <= t_ns <= b)
+
+    outside = []
+    for rc in cells:
+        i = chunk_of(int(twin["table"][rc]), twin["windows"])
+        t = int(card["table"][rc]) + offset_ns
+        a, b = card["windows"][i]
+        if not a - err_ns <= t <= b + err_ns:
+            outside.append((int(rc[0]), int(rc[1]), i, (t - a) * 1e-3, (t - b) * 1e-3))
+    phase("kernels", f"stamp: table [{rows}, {card['table'].shape[1]}], chunks at rows {starts}: {len(cells)} cells "
+          f"written (twin) / {len(card_cells)} (card), equal {set(cells) == card_cells}; rising in the twin's order "
+          f"{rising == sorted(rising)}; clock half-width {err_ns * 1e-3:.2f} us, stamps off their chunk's host window "
+          f"{outside[:4]}; launches {card['launches']} (want {per_chunk} x {len(starts)}); graph replays "
+          f"{program.replays}")
+    if set(cells) != card_cells or rising != sorted(rising) or outside or card["launches"] != per_chunk * len(starts):
+        raise AssertionError("stamp kernel against its twin: cells, order, host clock or launch count differ")
+    return dict(cells=len(cells), err_us=err_ns * 1e-3, launches=card["launches"])
 
 
 def run_pass(seq, cfg, dev, push_seconds: list | None = None, wrap=None, profile: bool = False):
@@ -1242,7 +1352,7 @@ def run_slice(torch, T, dev, kernels_out):
           f"({dt:.3f} s, push_frame -> flush), ATE {ate * 100:.4f} cm, keyframes {out.num_keyframes}, "
           f"active blocks {int(bf.state.table.num_active())}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    phase("slice", "stage timing (CUDA events):\n" + bf.timing.report())
+    phase("slice", "stage timing (device stamps):\n" + bf.timing.report())
     ints = ("num_keys", "filtered_matches", "pairs_valid", "corr_cursor", "alloc_overflow", "upd_truncated",
             "patch_overflow", "reint_frames", "ring_miss", "blocks_touched", "active_blocks", "lost_chunks")
     for r in recs:
@@ -1294,9 +1404,10 @@ def counted_kernels() -> dict:
     from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
     from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
     from bundlefusion_tpu_torch.solver.system import assemble_system
+    from bundlefusion_tpu_torch.utils.timeline import stamp
 
     return {"tsdf_integrate": integrate_blocks, "preprocess": fused_preprocess, "assemble": assemble_system,
-            "sift_sample": sample_window, "dense_verify": dense_verify_sums}
+            "sift_sample": sample_window, "dense_verify": dense_verify_sums, "stamp": stamp}
 
 
 def reset_launches() -> None:
@@ -1320,33 +1431,38 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
     K3 once per GN iteration of the local solve (two prune rounds) and of
     the global solve (one round, from the second chunk on); K5 twice per
     chunk (the filter, the opt-verify) and once per global match (from the
-    second chunk on)."""
+    second chunk on); the timeline's stamps twice per stage the chunk runs
+    (``global_solve`` from the second chunk on, ``gc`` every
+    ``gc_every_chunks``), six for ``chunk_local``'s parts and two for the
+    upload (``finalize()``'s clock calibration is not counted)."""
     bc, ac = cfg.bundling, cfg.app
     h, w, octaves = ac.input_height, ac.input_width, 0
     for _ in range(bc.sift_octaves):
         if h < 16 or w < 16:
             break
         octaves, h, w = octaves + 1, -(-h // 2), -(-w // 2)
+    gcs = chunks // ac.gc_every_chunks if ac.gc_every_chunks else 0
     return {"tsdf_integrate": chunks, "preprocess": chunks, "sift_sample": 2 * octaves * chunks,
             "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters,
-            "dense_verify": 3 * chunks - 1}
+            "dense_verify": 3 * chunks - 1, "stamp": 16 * chunks + 2 * (chunks - 1) + 2 * gcs}
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
-    """K1, K2, K4 and K5 as ``expected_launches`` counts them; K3 at least
-    once per solve iteration counted there (a relocalization or
+    """K1, K2, K4, K5 and the stamps as ``expected_launches`` counts them;
+    K3 at least once per solve iteration counted there (a relocalization or
     revalidation solves more)."""
-    exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample", "dense_verify")}
+    exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample", "dense_verify", "stamp")}
     if exact != {k: want[k] for k in exact} or launches["assemble"] < want["assemble"]:
         raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3 at least)")
 
 
 def record_launches(kernels_out, path: str, launches: dict[str, int]) -> None:
     """Attach a path's launch counts to the kernels' entries; every kernel
-    of the path must have launched."""
+    of the path (K1-K5; the stamps are counted where the timeline is) must
+    have launched."""
     for k in kernels_out:
         k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
-    if not all(launches.values()):
+    if not all(launches[k["name"]] for k in kernels_out):
         raise AssertionError(f"{path}: a kernel of the path was never launched: {launches}")
 
 
@@ -1487,13 +1603,15 @@ def tensor_digest(torch, t) -> int:
 def fusion_digests(torch, objs: dict) -> dict[str, int]:
     """Digests of every tensor of each named nest of dataclasses (a
     ``FusionState``: graph, control, trajectory, block table, update
-    records, per-chunk stores, runlog)."""
+    records, per-chunk stores, runlog), but the timeline's stamps: device
+    clock readings, which differ from run to run."""
     out = {}
 
     def walk(prefix, obj):
         if dataclasses.is_dataclass(obj):
             for f in dataclasses.fields(obj):
-                walk(f"{prefix}.{f.name}", getattr(obj, f.name))
+                if f.name != "stamps":
+                    walk(f"{prefix}.{f.name}", getattr(obj, f.name))
         elif isinstance(obj, torch.Tensor):
             out[prefix] = tensor_digest(torch, obj)
 
@@ -1535,8 +1653,8 @@ def digest_run(torch, T, seq, cfg, dev):
         return last["chunk_result"]
 
     @contextlib.contextmanager
-    def stage(name, block=False):
-        with stage_of(name, block=block):
+    def stage(name, block=False, **kw):
+        with stage_of(name, block=block, **kw):
             yield
         if name == "upload":  # the upload worker: it runs beside the chunk step
             return
@@ -1629,7 +1747,7 @@ def run_stream(torch, T, dev, kernels_out) -> None:
           f"distinct, against a pool of {ac.block_capacity}; active blocks by chunk "
           f"{[r['active_blocks'] for r in chunks]}; alloc_overflow {sum(r['alloc_overflow'] for r in chunks)}; "
           f"tracking_lost_chunks {out.tracking_lost_chunks}; ATE {ate * 100:.4f} cm")
-    phase("stream", "stage timing (CUDA events; streaming includes its host reads):\n" + bf.timing.report())
+    phase("stream", "stage timing (device stamps; streaming: host clock, with its host reads):\n" + bf.timing.report())
     phase("stream", f"{len(sites)} readbacks at chunks {sync_chunks}; by site {per_site}; ingest waits that "
           f"blocked {dict(bf.ingest_waits)}")
     phase("stream", "runlog streaming steps " + json.dumps(recs))
@@ -2061,7 +2179,7 @@ def run_sharded(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     phase("sharded", f"ATE {ate * 100:.4f} cm; max |pose - phase 4's| {gap:.3g}; validity equal "
           f"{np.array_equal(first['valid'], ref['valid'])}; the three passes' state digests, poses and validity "
           f"bit-equal")
-    phase("sharded", "stage timing of the replayed pass (CUDA events):\n" + replayed["report"])
+    phase("sharded", "stage timing of the replayed pass (device stamps):\n" + replayed["report"])
     if ate > ATE_BAR or not np.array_equal(first["valid"], ref["valid"]):
         raise AssertionError(f"sharded pipeline: ATE {ate}, validity equal {np.array_equal(first['valid'], ref['valid'])}")
     for p in passes[1:]:
@@ -2313,7 +2431,7 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
           f"{[int(r['chunk_valid']) for r in recs]}; dense pairs {cursor} of {bc.max_dense_pairs_global} slots, "
           f"overflow {overflow}; global_solve {gs:.2f} ms per chunk (phase 4: {ref['global_solve_ms']:.2f}); peak "
           f"memory {peak:.3f} GiB; {len(sites)} readbacks {by_site(sites)}; launches {launches}")
-    phase("paths", "dense global stage timing (CUDA events):\n" + bf.timing.report())
+    phase("paths", "dense global stage timing (device stamps):\n" + bf.timing.report())
     one_launch_per_chunk(kernels_out, "dense_global", launches, len(recs))
     if sites:
         raise AssertionError(f"readbacks in the dense global pass: {by_site(sites)}")
@@ -2523,7 +2641,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the port's kernels by the name of their __global__ function
 OUR_KERNELS = {"tsdf_fuse_kernel": "tsdf_integrate", "preprocess_kernel": "preprocess",
                "assemble_flags_kernel": "assemble pass 1", "assemble_rows_kernel": "assemble pass 2",
-               "sift_sample_kernel": "sift_sample", "dense_verify_kernel": "dense_verify"}
+               "sift_sample_kernel": "sift_sample", "dense_verify_kernel": "dense_verify", "stamp_kernel": "stamp"}
 # the host's calls that put work on the device: a kernel launch, a whole
 # CUDA graph's launch, an asynchronous copy or fill
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
@@ -2887,7 +3005,7 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
                  for k in STAGES + ("whole_chunk_step",)}
         peak = max(p["peak_gib"] for p in timed if p["mode"] == mode)
         phase("graphs", f"{mode}: timed fps {[round(x, 3) for x in fps]} (interleaved {'/'.join(GRAPH_ORDER)}), "
-              f"median {statistics.median(fps):.3f}; stage means (ms, CUDA events; whole_chunk_step host clock) "
+              f"median {statistics.median(fps):.3f}; stage means (ms, device stamps; whole_chunk_step host clock) "
               f"{json.dumps(means)}; peak memory {peak:.3f} GiB")
     replays = {k: v["replays"] for k, v in watched["stats"].items()}
     phase("graphs", f"graphed pass on the reused executable: replays {replays} over {chunks} chunks, chunk 0's "

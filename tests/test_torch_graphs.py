@@ -108,12 +108,12 @@ def _push_recorded(bf, seq, frames: int, ptrs: dict | None = None, snapshot_at: 
     stage_of = bf.timing.stage
 
     @contextlib.contextmanager
-    def stage(name, block=False):
+    def stage(name, block=False, **kw):
         key = (bf.chunk_count, name)
         if ptrs is not None:
             ptrs[(key, "before")] = {k: t.data_ptr() for k, t in _state_tensors(bf).items()}
         log.key = key if name in STEADY else None
-        with stage_of(name, block=block):
+        with stage_of(name, block=block, **kw):
             yield
         log.key = None
         if ptrs is not None:

@@ -194,9 +194,9 @@ def mesh_recorded():
     stage_of = bf.timing.stage
 
     @contextlib.contextmanager
-    def stage(name, block=False):
+    def stage(name, block=False, **kw):
         log.key = (bf.chunk_count, name) if name in ("global_solve", "gc") else None
-        with stage_of(name, block=block):
+        with stage_of(name, block=block, **kw):
             yield
         log.key = None
 

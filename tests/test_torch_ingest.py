@@ -201,6 +201,10 @@ def _run(monkeypatch, mode):
     return bf, bf.outputs()
 
 
+def _untimed(records):
+    return [{k: v for k, v in r.items() if k != "timeline"} for r in records]
+
+
 @pytest.fixture(scope="module")
 def modes():
     mp = pytest.MonkeyPatch()
@@ -220,7 +224,8 @@ def test_ingest_modes_are_bit_identical(modes):
         for k in ("keys", "sdf", "weight", "color"):
             assert torch.equal(getattr(b.state.table, k), getattr(ba.state.table, k)), (m, k)
         assert torch.equal(b.state.hist_d16, ba.state.hist_d16) and torch.equal(b.state.hist_c8, ba.state.hist_c8)
-        assert b.runlog.records == ba.runlog.records, m
+        # every counter exactly; the timeline's times differ from run to run
+        assert _untimed(b.runlog.records) == _untimed(ba.runlog.records), m
         assert b.upload_bytes == ba.upload_bytes
     assert set(modes["profile"][0].timing.summary()) >= {"upload", "chunk_local", "plan_fuse"}
 

@@ -9,6 +9,7 @@ root, whose ``chip_smoke.py`` makes the K3, K4 and K5 inputs):
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from bundlefusion_tpu_torch.io.framewire import frame_to_wire2
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.ops import preprocess as pp
 from bundlefusion_tpu_torch.solver import system
-from bundlefusion_tpu_torch.utils import graphs
+from bundlefusion_tpu_torch.utils import graphs, timeline
 from chip_smoke import (K3_EDGE_CASES, K5_EDGE_CASES, assembly_edge_inputs, assembly_inputs, k5_cases,
                         program_outputs_survive, sift_inputs, verify_edge_inputs)
 
@@ -307,6 +308,75 @@ def test_k5_replays_in_a_graph(dev, verify_cache):
             torch.cuda.current_stream().synchronize()
             assert torch.equal(out, want)
     assert prog.replays == 2 and filters.dense_verify_sums.launches == launches + 2
+
+
+def test_stamps_replay_in_a_graph(dev):
+    """A captured stamp reads its row on the device: each replay stamps the
+    row the chunk tensor holds then (an offset of -1 after the program
+    advanced it), later than the replay before; an eager stamp takes its row
+    from the host, and a row outside the table goes to the scratch row."""
+    table = timeline.make_table(5, dev)
+    stamps = timeline.Stamps(table, torch.zeros((), dtype=torch.int32, device=dev))
+    col = timeline.COLUMN["sift"]
+
+    def step(s):
+        s.begin("sift")
+        s.row.add_(1)
+        s.end("sift", -1)
+
+    exe = graphs.Executable(dev, None)
+    prog = exe.program("stamps", step)
+    exe.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(exe.stream):
+        prog(stamps)  # eager (row 0), then captured
+        prog(stamps)
+        prog(stamps)
+        timeline.stamp(table, 0, host_row=3)
+        timeline.stamp(table, 1, host_row=9)
+        torch.cuda.current_stream().synchronize()
+    t = table.cpu().numpy()
+    seq = [t[r, col + k] for r in range(3) for k in (0, 1)]
+    assert int(stamps.row) == 3 and all(v > 0 for v in seq) and seq == sorted(seq)
+    assert t[3, 0] > seq[-1] and t[4, 1] >= t[3, 0]
+    offset, err = timeline.calibrate(dev)
+    assert 0 <= err < 1e6  # within a millisecond
+
+
+def test_capture_counts_only_its_own_threads_launches(dev):
+    """A graph's launch count is what its capture launched on the capturing
+    thread: stamps another thread launches eagerly meanwhile (as the
+    pipeline's upload worker does) count once, and no replay repeats them."""
+    table = timeline.make_table(3, dev)
+    stamps = timeline.Stamps(table, torch.zeros((), dtype=torch.int32, device=dev))
+    go, done = threading.Event(), threading.Event()
+
+    def other():
+        go.wait()
+        with torch.cuda.stream(torch.cuda.Stream(dev)):
+            for _ in range(5):
+                timeline.stamp(table, 2, host_row=2)
+        done.set()
+
+    def step(s):
+        s.begin("sift")
+        if torch.cuda.is_current_stream_capturing():  # the other thread stamps while this one captures
+            go.set()
+            assert done.wait(30)
+        s.end("sift")
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    exe = graphs.Executable(dev, None)
+    prog = exe.program("stamps", step)
+    exe.stream.wait_stream(torch.cuda.current_stream())
+    before = timeline.stamp.launches
+    with torch.cuda.stream(exe.stream):
+        prog(stamps)  # eager, then captured
+        prog(stamps)
+        prog(stamps)
+        torch.cuda.current_stream().synchronize()
+    worker.join()
+    assert prog.replays == 2 and timeline.stamp.launches - before == 2 + 5 + 2 * 2
 
 
 def test_program_outputs_survive_other_programs(dev):
