@@ -140,11 +140,19 @@ def expected_replays(chunks: int, cfg) -> dict[str, int]:
     """The replays of each program of the chunk step in a pass of ``chunks``
     chunks on an executable that holds every graph already: chunk_local,
     publish and plan_fuse every chunk, graph_step_first chunk 0's,
-    graph_step and global_solve every later chunk's, gc every
+    ``graph_step@T`` every later chunk's of slot tier T (0 for a tier the
+    pass does not reach), global_solve every later chunk's, gc every
     ``gc_every_chunks`` chunks."""
-    gc_every = cfg.app.gc_every_chunks
-    return {"chunk_local": chunks, "graph_step_first": 1, "graph_step": chunks - 1, "global_solve": chunks - 1,
-            "publish": chunks, "plan_fuse": chunks, "gc": chunks // gc_every if gc_every else 0}
+    from .bundle.global_graph import graph_tiers
+    from .bundle.pipeline import graph_step_program
+
+    gc_every, capacity = cfg.app.gc_every_chunks, cfg.bundling.max_num_images
+    steps = dict.fromkeys((f"graph_step@{t}" for t in graph_tiers(capacity)), 0)
+    for c in range(chunks):
+        name = graph_step_program(c, capacity)[0]
+        steps[name] = steps.get(name, 0) + 1
+    return {"chunk_local": chunks, **steps, "global_solve": chunks - 1, "publish": chunks, "plan_fuse": chunks,
+            "gc": chunks // gc_every if gc_every else 0}
 
 
 def run(width: int, height: int, frames: int, blocks: int, passes: int, noise: bool, device, *, progress=None):
@@ -222,7 +230,7 @@ def run(width: int, height: int, frames: int, blocks: int, passes: int, noise: b
         # pass replayed graphs captured before it (none on the CPU)
         "graph_replays": replays,
         "capture_s": capture_s,
-        "timed_replayed_cached_graphs": not captured and replays == {
+        "timed_replayed_cached_graphs": not captured and {k: v for k, v in replays.items() if any(v)} == {
             k: [n] * passes for k, n in expected_replays(chunks, cfg).items() if n},
     }
     if cuda:

@@ -6,6 +6,13 @@ buffer, and a global BA over keyframe poses runs with max-residual pruning,
 on one device (:func:`global_solve`) or sharded over a mesh
 (:func:`global_solve_sharded`).
 
+:func:`global_match` may run over a prefix of the slots (``slots``): the
+graph step takes the smallest tier of :func:`graph_tiers` that holds the
+keyframes so far, chosen on the host from the chunk index, so that its work
+follows the graph's fill and not its capacity. Slots past the new keyframe
+are masked out of the match in either case, so a tier gives the capacity's
+result.
+
 The graph is updated in place where the JAX pipeline donates it: the
 keyframe slot write of :func:`add_keyframe`, and every tensor that
 :func:`global_match`, :func:`global_solve` and :func:`global_solve_sharded`
@@ -84,6 +91,26 @@ def make_graph(cfg: BundlingConfig, cache_h: int, cache_w: int, device) -> Globa
     )
 
 
+GRAPH_TIER_MIN = 64  # the smallest slot tier of the graph step
+
+
+def graph_tiers(capacity: int) -> tuple[int, ...]:
+    """The slot counts the graph step runs over: powers of two from
+    :data:`GRAPH_TIER_MIN` below ``capacity``, then ``capacity`` (a capacity
+    of 64 or less is one tier)."""
+    tiers, t = [], GRAPH_TIER_MIN
+    while t < capacity:
+        tiers.append(t)
+        t *= 2
+    return (*tiers, capacity)
+
+
+def graph_tier(c: int, capacity: int) -> int:
+    """The slots chunk ``c``'s graph step runs over: the smallest tier that
+    holds its ``c + 1`` keyframes (keyframe slot = chunk index)."""
+    return next(t for t in graph_tiers(capacity) if t > c)
+
+
 def _slot(k_idx, device) -> torch.Tensor:
     """A keyframe slot as a 0-d int32 tensor on ``device`` (a Python int
     becomes one by a fill on the device, not a copy from the host)."""
@@ -143,7 +170,7 @@ def _append_corrs(graph: GlobalGraph, kmax: int, append_cap: int, cand: residual
     cursor = torch.sum(kept).to(torch.int32)
     evicted = torch.sum(live).to(torch.int32) - cursor
     overflow = graph.corr_overflow + torch.clamp(evicted, min=0)
-    tgt = cursor + torch.arange(append_cap, device=dev)
+    tgt = cursor + torch.arange(sel_ok.shape[0], device=dev)  # at most append_cap candidates
     new = residuals.SparseCorrs(
         *(set_drop(pad(getattr(compact, f)), tgt, getattr(cand, f), sel_ok)
           for f in ("img_a", "img_b", "p_a", "p_b", "weight"))
@@ -152,31 +179,38 @@ def _append_corrs(graph: GlobalGraph, kmax: int, append_cap: int, cand: residual
 
 
 def global_match(graph: GlobalGraph, k_idx, cache_cam: CameraModel, cfg: BundlingConfig,
-                 against_all: bool = False) -> GlobalMatchResult:
+                 against_all: bool = False, slots: int | None = None) -> GlobalMatchResult:
     """Match keyframe ``k_idx`` (0-d int32, or a Python int on a host-driven
     path) against every previous keyframe, filter, and append the surviving
-    correspondences to ``graph`` in place; one batched pass over all K slots.
+    correspondences to ``graph`` in place; one batched pass over the first
+    ``slots`` slots (default: all K), which must hold ``k_idx`` and every
+    candidate. The per-slot results are [slots]; the store's eviction and
+    append width keep the capacity's, so a tier evolves it as K slots do.
 
     With ``against_all=True`` the candidates are every *valid* keyframe other
     than ``k_idx``, later ones included: the re-match of a stale keyframe
     after relocalization (``BundleFusion._revalidate_stale``)."""
     kmax = cfg.max_num_images
+    n = kmax if slots is None else slots
     dev = graph.poses.device
     k_idx = _slot(k_idx, dev)
-    slots = torch.arange(kmax, device=dev)
-    prev_mask = ((slots != k_idx) if against_all else (slots < k_idx)) & graph.valid
+    # the first n slots: contiguous views of the graph's own storage
+    keys = sift.SiftKeys(*(getattr(graph.keys, f.name)[:n] for f in dataclasses.fields(sift.SiftKeys)))
+    caches = FrameCache(*(getattr(graph.cache, f.name)[:n] for f in dataclasses.fields(FrameCache)))
+    slot_ids = torch.arange(n, device=dev)
+    prev_mask = ((slot_ids != k_idx) if against_all else (slot_ids < k_idx)) & graph.valid[:n]
     new_keys = sift.SiftKeys(*(row(getattr(graph.keys, f.name), k_idx) for f in dataclasses.fields(sift.SiftKeys)))
     new_cache = FrameCache(*(row(getattr(graph.cache, f.name), k_idx) for f in dataclasses.fields(FrameCache)))
 
-    m = matcher.match_pairs(graph.keys.desc, graph.keys.valid, new_keys.desc, new_keys.valid, cfg)
-    pa = graph.keys.p3d[slots[:, None], m.idx_i]  # [K, M, 3]
+    m = matcher.match_pairs(keys.desc, keys.valid, new_keys.desc, new_keys.valid, cfg)
+    pa = keys.p3d[slot_ids[:, None], m.idx_i]  # [n, M, 3]
     pb = new_keys.p3d[m.idx_j]
     m = dataclasses.replace(m, valid=m.valid & prev_mask[:, None])
 
-    ncache = FrameCache(*(getattr(new_cache, f.name).expand(kmax, *getattr(new_cache, f.name).shape)
+    ncache = FrameCache(*(getattr(new_cache, f.name).expand(n, *getattr(new_cache, f.name).shape)
                           for f in dataclasses.fields(FrameCache)))
     res = filters.filter_pairs_batch(
-        pa, pb, m, graph.cache, ncache, cache_cam, cfg, cfg.min_matches_global, use_dense_verify=True
+        pa, pb, m, caches, ncache, cache_cam, cfg, cfg.min_matches_global, use_dense_verify=True
     )
     pair_valid = res.pair_valid & prev_mask
     any_valid = torch.any(pair_valid)
@@ -187,15 +221,17 @@ def global_match(graph: GlobalGraph, k_idx, cache_cam: CameraModel, cfg: Bundlin
     mf = fm.valid.shape[1]
     cand_ok = (fm.valid & pair_valid[:, None]).reshape(-1)
     append_cap = min(kmax * mf, 1024, max(graph.corrs.capacity // 4, 128))
+    # (fewer than append_cap candidates where n * mf is less: the rest of the
+    # block is never written)
     top, sel = top_k(torch.where(cand_ok, 1.0, -torch.inf), append_cap)
     sel_ok = torch.isfinite(top)
     n_new = torch.sum(sel_ok).to(torch.int32)
     cand = residuals.SparseCorrs(
-        img_a=torch.repeat_interleave(slots, mf)[sel].to(torch.int32),
-        img_b=k_idx.to(torch.int32).expand(append_cap),
-        p_a=graph.keys.p3d[slots[:, None], fm.idx_i].reshape(-1, 3)[sel],
+        img_a=torch.repeat_interleave(slot_ids, mf)[sel].to(torch.int32),
+        img_b=k_idx.to(torch.int32).expand(sel.shape[0]),
+        p_a=keys.p3d[slot_ids[:, None], fm.idx_i].reshape(-1, 3)[sel],
         p_b=new_keys.p3d[fm.idx_j].reshape(-1, 3)[sel],
-        weight=torch.ones(append_cap, device=dev),
+        weight=torch.ones(sel.shape[0], device=dev),
     )
     # a keyframe with no surviving matches leaves the standing set untouched
     # (no compaction, no evictions): both outcomes are computed and selected

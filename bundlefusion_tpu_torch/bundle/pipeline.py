@@ -36,16 +36,21 @@ chunk 0 included, runs through a ``utils/graphs.py`` program: on a card it
 runs eagerly and is captured as a CUDA graph at its first call, and is
 replayed at every later one. Chunk 0's graph step is a program of its own,
 ``graph_step_first`` (the JAX package compiles its ``is_first`` graph step
-separately); chunk 0's ``chunk_local``, ``publish`` and ``plan_fuse`` are
-the programs every later chunk replays. That requires what jit's donation
-gives the JAX step, and the port keeps it on the CPU as well: every state
-tensor keeps its storage (each stage writes its results into the state in
-place, ``copy_into`` where a function builds new arrays), the chunk's
-frames are copied into static wire buffers, the chunk index and the frame
-ids come from device tensors (:class:`StepInputs`) that the step advances
-itself, and both graph steps hand their results to ``plan_fuse`` in the
-same buffers (:class:`StepCarry`), so each program's operations are the
-same at every chunk. Streaming, revalidation, ``finalize()`` and the
+separately), and every later chunk's is the program of its slot tier,
+``graph_step@T``: global matching runs over the first T keyframe slots,
+the smallest tier that holds the chunk's keyframes (``run_graph_step``),
+so its work follows the graph's fill, not its capacity; every tier is
+captured at the first steady chunk. Chunk 0's ``chunk_local``,
+``publish`` and ``plan_fuse`` are the programs every later chunk replays.
+That requires what jit's donation gives the JAX step, and the port keeps
+it on the CPU as well: every state tensor keeps its storage (each stage
+writes its results into the state in place, ``copy_into`` where a
+function builds new arrays), the chunk's frames are copied into static
+wire buffers, the chunk index and the frame ids come from device tensors
+(:class:`StepInputs`) that the step advances itself, and every graph step
+hands its results to ``plan_fuse`` in the same buffers
+(:class:`StepCarry`), so each program's operations are the same at every
+chunk. Streaming, revalidation, ``finalize()`` and the
 upload's unpack stay eager: host decisions, or work off the step. The
 graphs, the state and the compute stream form one executable, kept by
 (configuration, device, camera, mesh) in a process-wide cache: a new
@@ -202,10 +207,11 @@ def make_carry(device) -> StepCarry:
 
 
 def _graph_step(st: "FusionState", step: StepInputs, res: chunk_mod.ChunkResult, cache_cam: CameraModel, cfg,
-                is_first: bool, carry: StepCarry) -> None:
+                is_first: bool, carry: StepCarry, slots: int = 0) -> None:
     """Stages ``graph_step_first`` (chunk 0) and ``graph_step``: all
     keyframe-graph control flow of one chunk: keyframe pose init (chained
-    from the previous keyframe), ``add_keyframe``, global matching,
+    from the previous keyframe), ``add_keyframe``, global matching over the
+    first ``slots`` slots (the chunk's tier, :func:`graph_step_program`),
     relocalization, and the tracking-lost state machine. Updates the graph,
     the control state and the per-chunk stores of ``st`` in place (the JAX
     step donates them), and writes (integrate_mask, stats_in) into
@@ -225,7 +231,7 @@ def _graph_step(st: "FusionState", step: StepInputs, res: chunk_mod.ChunkResult,
         global_graph.add_keyframe(graph, k, res.keyframe_keys, res.keyframe_cache, init_pose, chain & chunk_valid)
         # loop closure and relocalization are ONE mechanism: match against
         # all previous keyframes (an invalid chunk's keys are all masked)
-        mres = global_graph.global_match(graph, k, cache_cam, cfg)
+        mres = global_graph.global_match(graph, k, cache_cam, cfg, slots=slots)
         reloc = mres.any_valid & chunk_valid & ~chain
         # index with a 1-element tensor: a 0-d index would be read by the host
         best = mres.best_prev.reshape(1)
@@ -256,6 +262,36 @@ def _graph_step(st: "FusionState", step: StepInputs, res: chunk_mod.ChunkResult,
         ]
     )
     copy_into(carry, StepCarry(ok, stats_in))
+
+
+def graph_step_program(c: int, capacity: int) -> tuple[str, int]:
+    """Chunk ``c``'s graph-step program and the slots it matches over:
+    ``graph_step_first`` (chunk 0 matches nothing) or ``graph_step@T``, T
+    the chunk's tier (``global_graph.graph_tier``), chosen on the host from
+    the chunk index. Each tier is a program of its own: a captured graph
+    has fixed shapes."""
+    if c == 0:
+        return "graph_step_first", 0
+    t = global_graph.graph_tier(c, capacity)
+    return f"graph_step@{t}", t
+
+
+def run_graph_step(exe: graphs.Executable, wrap, c: int, capacity: int, args: tuple, graphed: bool) -> int:
+    """Chunk ``c``'s graph step through ``exe``'s program of its tier
+    (:func:`graph_step_program`); ``wrap(fn)`` makes a program's function
+    from :func:`_graph_step` at a slot count, and ``args`` are its
+    arguments after the slot count is bound. On a card, the first graphed
+    call also captures every other tier's program without running it
+    (``Program.prepare``: that call's eager run loaded the kernels and
+    libraries, and a capture runs nothing, so the state is untouched),
+    which keeps every capture in the executable's first steady chunk, never
+    in a later chunk that reaches a new tier. Returns the slot count."""
+    name, slots = graph_step_program(c, capacity)
+    exe.program(name, wrap(functools.partial(_graph_step, slots=slots)))(*args, graphed=graphed)
+    if graphed and slots:
+        for t in global_graph.graph_tiers(capacity):
+            exe.program(f"graph_step@{t}", wrap(functools.partial(_graph_step, slots=t))).prepare(*args)
+    return slots
 
 
 def _publish_all(st: "FusionState", submap_size: int, chunk_frames: int) -> None:
@@ -1081,8 +1117,9 @@ class BundleFusion:
                        d_wire_int: torch.Tensor, c_wire_int: torch.Tensor, c: int) -> None:
         """Chunk ``c``'s step. Its stages run as the JAX package's programs
         do, each through the executable's program of its name
-        (:meth:`_run`); chunk 0's graph step is the ``graph_step_first``
-        program (the JAX package's ``is_first`` program). The stages read
+        (:meth:`_run`); the graph step is ``graph_step_first`` at chunk 0
+        (the JAX package's ``is_first`` program), then the program of the
+        chunk's slot tier (:func:`run_graph_step`). The stages read
         the chunk only from the static wire and the step inputs, and update
         the state in place."""
         bc = self.config.bundling
@@ -1113,8 +1150,10 @@ class BundleFusion:
         self.gn_iters_executed += bc.local_gn_iters * 2  # 2 solve+prune rounds
 
         with self._chunk_stage("graph_step", c):
-            self._run("graph_step_first" if first else "graph_step", _graph_step, st, step, res, self.cache_cam, bc,
-                      first, carry)
+            slots = run_graph_step(self._exe, lambda fn: functools.partial(_stamped, fn, "graph_step"), c,
+                                   bc.max_num_images, (self._stamps, st, step, res, self.cache_cam, bc, first, carry),
+                                   self._graphed)
+        self._host.put(c, "graph_slots", slots)
         self.num_keyframes = c + 1  # one keyframe per chunk
 
         if self.num_keyframes > 1:
@@ -1167,8 +1206,7 @@ class BundleFusion:
         ``graphs.disable_graphs()`` or routes the stage eagerly
         (``graph_stats``' ``route``). The program stamps the stage's begin
         and end on the device (:func:`_stamped`)."""
-        span = "graph_step" if name == "graph_step_first" else name
-        program = self._exe.program(name, functools.partial(_stamped, fn, span))
+        program = self._exe.program(name, functools.partial(_stamped, fn, name))
         return program(self._stamps, *args, graphed=self._graphed and name not in self._routes)
 
     def _streaming_step(self, k_idx: int, c: int) -> None:

@@ -18,9 +18,10 @@ shard's ``FusionState``, persistent step inputs that the ``plan_fuse``
 stage advances on the device, the graph step's carry and static wire
 buffers (depth [cf, H, W] int16, colour [cf, H, W, 3] uint8). Its stages
 are the serial pipeline's programs (``chunk_local``, ``graph_step_first``,
-``graph_step``, ``global_solve``, ``publish``, ``plan_fuse``, ``gc``): on a
-card each is captured as a CUDA graph at its first call and replayed after,
-on the shard's own stream, so two shards on one card may overlap. A run
+``graph_step@T`` for each slot tier T, ``global_solve``, ``publish``,
+``plan_fuse``, ``gc``): on a card each is captured as a CUDA graph at its
+first call and replayed after (the graph step's tiers all at round 1), on
+the shard's own stream, so two shards on one card may overlap. A run
 built under ``graphs.disable_graphs()`` runs them eagerly on the card; on
 the CPU they call their functions. Each shard uploads its chunk from a warm
 pinned 3-deep rotation straight into its static wire, after waiting on the
@@ -55,12 +56,12 @@ from ..bundle.pipeline import (
     FusionState,
     _chunk_local,
     _gc,
-    _graph_step,
     _plan_fuse_step,
     _publish_all,
     _staging_checkout,
     checkout_step,
     make_fusion_state,
+    run_graph_step,
     stream_ctx,
 )
 from ..config import Config
@@ -203,8 +204,8 @@ class ShardedRun:
 
         res = run("chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac)
         first = c == 0
-        run("graph_step_first" if first else "graph_step", _graph_step, st, step, res, self.cache_cam, bc, first,
-            carry)
+        run_graph_step(exe, lambda fn: fn, c, bc.max_num_images, (st, step, res, self.cache_cam, bc, first, carry),
+                       graphed)
         if not first:
             run("global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
         run("publish", _publish_all, st, S, cf)

@@ -15,7 +15,10 @@ configuration. Here:
     eager run's result tensors, which stay the program's outputs. So a
     program captures at its first call, which a stage that runs once per
     pipeline needs (chunk 0's graph step): the first pipeline of a
-    configuration captures it, every later one replays it. The graphs of
+    configuration captures it, every later one replays it. A program of a
+    function that returns nothing may also be captured ahead of its first
+    call (:meth:`Program.prepare`) once a program of the same operations
+    has run eagerly: the graph step's slot tiers. The graphs of
     one :class:`Executable` draw on one memory pool;
   * replay ≙ dispatch: every later call replays the graph, one launch;
   * in-place update of persistent state ≙ donation: a program's inputs are
@@ -153,6 +156,15 @@ class Program:
         self.replays += 1
         kernels.add_launches(self._launches)
         return self.outputs
+
+    def prepare(self, *args) -> None:
+        """Capture ``fn(*args)`` now, without the eager run, if there is no
+        graph yet: for a function that returns nothing, on an executable
+        that has already run a program of the same operations eagerly (the
+        kernels and libraries it needs are loaded). A capture runs nothing,
+        so the inputs are untouched; the first call replays."""
+        if self.graph is None:
+            self._capture(args, None)
 
     def _capture(self, args, eager) -> None:
         """Capture ``fn(*args)``; the graph copies its results into

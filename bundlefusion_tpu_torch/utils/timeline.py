@@ -163,13 +163,16 @@ class HostSpans:
             self.interval(chunk, name, t0, time.perf_counter())
 
 
-HOST_KEYS = ("pushed", "ingest_s", "profiled", "flush")  # marks, sums and flags beside the spans
+# marks, sums, flags and counts beside the spans; graph_slots: the slot tier
+# the chunk's graph step ran over (0 at chunk 0, which matches nothing)
+HOST_KEYS = ("pushed", "ingest_s", "profiled", "flush", "graph_slots")
 
 
 def chunk_record(stamps_row, host: dict, offset_ns: int, err_ns: float) -> dict:
     """One chunk's ``timeline``: ``device`` spans (the stamped ones, on the
-    host clock), ``host`` spans, the marks and flags of :data:`HOST_KEYS`
-    and the clock's half-width ``clock_err_s``, all in seconds."""
+    host clock), ``host`` spans, the marks, flags and counts of
+    :data:`HOST_KEYS` and the clock's half-width ``clock_err_s``, in
+    seconds."""
     device = {}
     for s in SPANS:
         b, e = int(stamps_row[COLUMN[s]]), int(stamps_row[COLUMN[s] + 1])
@@ -177,7 +180,8 @@ def chunk_record(stamps_row, host: dict, offset_ns: int, err_ns: float) -> dict:
             device[s] = [(b + offset_ns) * 1e-9, (e + offset_ns) * 1e-9]
     return {"profiled": bool(host.get("profiled", False)), "flush": bool(host.get("flush", False)),
             "clock_err_s": err_ns * 1e-9, "pushed": host.get("pushed"), "ingest_s": host.get("ingest_s", 0.0),
-            "device": device, "host": {k: v for k, v in host.items() if k not in HOST_KEYS}}
+            "graph_slots": host.get("graph_slots", 0), "device": device,
+            "host": {k: v for k, v in host.items() if k not in HOST_KEYS}}
 
 
 # what held the device in a gap before one of a chunk's stages, as the

@@ -185,13 +185,20 @@ exits non-zero; there is no CPU fallback):
                 SIFT octave and chunk, K5 three times per chunk but the
                 first (twice) and K3 at least once per GN iteration,
                 counted through replays; 0 readbacks; ATE <= 0.5 cm, every
-                chunk valid. Then two programs of one executable: the
-                outputs of the one captured second survive a replay of the
-                first (they are not in the shared pool).
+                chunk valid. Then a 70-chunk scan that crosses the graph
+                step's first slot tier (``graph_step@64`` to
+                ``graph_step@128``), graphed on a fresh executable and
+                eager: every tier of the ladder captured once chunk 1 is
+                dispatched, each replayed at every chunk that uses it,
+                ``graph_slots`` the ladder's, state, poses and validity
+                bit-equal; graph_step's device ms by tier. Then two
+                programs of one executable: the outputs of the one
+                captured second survive a replay of the first (they are
+                not in the shared pool).
 
 Phases 4-14 run the chunk step graphed (each program captured at its first
-call when its executable is fresh, chunk 0's stages at chunk 0, and
-replayed after); phase 5's window replays the executable phase 4 captured,
+call when its executable is fresh, chunk 0's stages at chunk 0, the graph
+step's slot tiers all at chunk 1, and replayed after); phase 5's window replays the executable phase 4 captured,
 and says so. Phases 4 and 6-15 set the kernels' launch counts to 0 before
 their run and read them after it (a replay adds the launches its graph
 captured): each of their paths must launch all five kernels. Small outputs
@@ -205,6 +212,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import copy
 import dataclasses
 import gc
 import gzip
@@ -1546,7 +1554,7 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
     sites = sync_sites(torch, steady)
     stats = bf.graph_stats
     captured = sorted(k for k, v in stats.items() if v["captured"])
-    replays = {k: v["replays"] for k, v in stats.items()}
+    replays = {k: v["replays"] for k, v in stats.items() if v["replays"]}  # (tiers the pass does not reach: 0)
     want = {k: n for k, n in bench.expected_replays(bf.chunk_count, cfg).items() if n}
     phase("syncs", f"the chunk step replayed the graphs phase 4 captured, chunk 0's included (captured in this "
           f"window: {captured}); replays {replays}")
@@ -2049,7 +2057,7 @@ def run_multiseq(torch, T, dev, kernels_out, ref) -> None:
             raise AssertionError(f"a {p['mode']} run differs from the first graphed run: {[d[:8] for d in diff]}")
         if p["syncs"] or p["launches"] != launches:
             raise AssertionError(f"{p['mode']}: {len(p['syncs'])} host syncs, launches {p['launches']}")
-        replays = [{k: v["replays"] for k, v in st.items()} for st in p["stats"]]
+        replays = [{k: v["replays"] for k, v in st.items() if v["replays"]} for st in p["stats"]]
         routes = {v["route"] for st in p["stats"] for v in st.values()}
         if p["mode"] == "graphed" and (replays != [want, want] or any(v["captured"] for st in p["stats"] for v in st.values())):
             raise AssertionError(f"a graphed run on the reused executables does not replay every stage: {p['stats']}")
@@ -2970,13 +2978,119 @@ def program_outputs_survive(torch, graphs, dev) -> dict:
                 in_pool_values=sorted(set(out[:: n // 8].tolist())))
 
 
+TIER_CHUNKS = 70  # phase 15's tier scan: chunks 1-63 at the graph step's 64-slot tier, 64-69 at 128
+
+
+def tier_scan(torch, seq, cfg, dev, mode: str) -> dict:
+    """One pass of a fresh pipeline over ``seq``, long enough that the
+    graph step crosses a slot tier, with the chunk step graphed (the
+    default) or eager (``graphs.disable_graphs()``): which graph-step tiers
+    had a graph once chunk 1, the first steady chunk, was dispatched
+    (``ready``); per chunk, the tier its graph step ran over (``slots``,
+    the timeline's ``graph_slots``) and that stage's device ms; the
+    programs' stats, the state's digests before finalize, poses and
+    validity."""
+    from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
+    from bundlefusion_tpu_torch.utils import graphs
+
+    with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+        bf = BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device=dev)
+    ready = None
+    for i in range(len(seq.poses)):
+        bf.push_frame(seq.depth[i], seq.color[i])
+        if i == 2 * cfg.bundling.submap_size:  # chunk 1's last frame
+            bf.sync()
+            ready = {n: p.graph is not None for n, p in bf._exe.programs.items() if n.startswith("graph_step@")}
+    bf.flush()
+    digests = state_digests(torch, bf)
+    out = bf.outputs()
+    same = tier_against_capacity(torch, bf) if mode == "graphed" else None
+    recs = [r["timeline"] for r in bf.runlog.records if "timeline" in r]
+    rec = dict(mode=mode, ready=ready, slots=[t["graph_slots"] for t in recs],
+               graph_step_ms=[(t["device"]["graph_step"][1] - t["device"]["graph_step"][0]) * 1e3 for t in recs],
+               stats=bf.graph_stats, digests=digests, poses=out.poses, valid=out.valid, tier_vs_capacity=same,
+               valid_chunks=[r["chunk_valid"] for r in bf.runlog.records if "chunk_valid" in r])
+    del bf, out
+    return rec
+
+
+def tier_against_capacity(torch, bf) -> dict:
+    """A keyframe of ``bf``'s graph within the first tier (the last one
+    there) matched again, eagerly, on two copies of the graph, over its
+    chunk's slot tier and over every slot: which per-slot results (on the
+    tier's slots) and which tensors of the graph after the append are
+    bit-equal, the largest transform difference, and the keyframe's
+    links."""
+    from bundlefusion_tpu_torch.bundle import global_graph as gg
+
+    bc, k = bf.config.bundling, min(bf.chunk_count, gg.GRAPH_TIER_MIN) - 1
+    tier = gg.graph_tier(k, bc.max_num_images)
+    runs = []
+    for slots in (tier, None):
+        g = copy.deepcopy(bf.state.graph)
+        r = gg.global_match(g, torch.full((), k, dtype=torch.int32, device=bf.device), bf.cache_cam, bc, slots=slots)
+        runs.append((r, fusion_digests(torch, {"graph": g})))
+    (a, ga), (b, gb) = runs
+    equal = {f: bool(torch.equal(getattr(a, f), getattr(b, f)[:tier]))
+             for f in ("pair_valid", "inlier_counts", "transforms")}
+    equal.update(best_prev=bool(torch.equal(a.best_prev, b.best_prev)), graph=ga == gb)
+    return dict(chunk=k, tier=tier, links=int(a.pair_valid.sum()), equal=equal,
+                transform_max_diff=float((a.transforms - b.transforms[:tier]).abs().max()))
+
+
+def check_tier_scan(graphed: dict, eager: dict, cfg, chunks: int) -> dict:
+    """``tier_scan``'s graphed pass on a fresh executable against its eager
+    pass: every tier of the ladder captured once chunk 1 was dispatched,
+    each tier replayed at every chunk that uses it but the first tier's
+    first (its eager run), the timeline's ``graph_slots`` the ladder's
+    tiers, state digests, poses and validity bit-equal; a keyframe matched
+    over its tier and over every slot gives the same links, counts, best
+    match and graph, and transforms within 1e-6 (``tier_against_capacity``).
+    Returns the tiers' capture seconds and graph_step device ms (median) by
+    tier."""
+    from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.bundle import global_graph, pipeline as pipe
+
+    cap = cfg.bundling.max_num_images
+    tiers = [f"graph_step@{t}" for t in global_graph.graph_tiers(cap)]
+    want_slots = [pipe.graph_step_program(c, cap)[1] for c in range(chunks)]
+    uses = {k: n for k, n in bench.expected_replays(chunks, cfg).items() if k in tiers}
+    first = pipe.graph_step_program(1, cap)[0]
+    stats = graphed["stats"]
+    if graphed["ready"] != dict.fromkeys(tiers, True) or not all(stats.get(k, {}).get("captured") for k in tiers):
+        raise AssertionError(f"tiers not all captured at the first steady chunk: {graphed['ready']}, {stats}")
+    replays = {k: stats[k]["replays"] for k in tiers}
+    if replays != {k: n - (k == first) for k, n in uses.items()}:
+        raise AssertionError(f"tier replays {replays} against uses {uses}: a tier captured at its first use")
+    for p in (graphed, eager):
+        if p["slots"] != want_slots:
+            raise AssertionError(f"{p['mode']}: graph_slots {p['slots']} against {want_slots}")
+    diff = sorted(k for k in graphed["digests"] if graphed["digests"][k] != eager["digests"].get(k))
+    if diff or not np.array_equal(graphed["poses"], eager["poses"]) or not np.array_equal(graphed["valid"],
+                                                                                          eager["valid"]):
+        raise AssertionError(f"the tier scan's graphed and eager passes differ: {diff[:8]}")
+    same = graphed["tier_vs_capacity"]
+    if not all(v for k, v in same["equal"].items() if k != "transforms") or same["transform_max_diff"] > 1e-6:
+        raise AssertionError(f"a keyframe matched over its tier and over every slot differs: {same}")
+    ms = {}
+    for p in (graphed, eager):
+        for t, x in zip(p["slots"][1:], p["graph_step_ms"][1:]):
+            ms.setdefault(p["mode"], {}).setdefault(t, []).append(x)
+    return dict(capture_s={k: round(stats[k]["capture_s"], 4) for k in tiers}, replays=replays,
+                tier_vs_capacity=graphed["tier_vs_capacity"],
+                graph_step_ms={m: {t: round(statistics.median(v), 4) for t, v in d.items()} for m, d in ms.items()},
+                chunks_valid=sum(map(bool, graphed["valid_chunks"])))
+
+
 def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
     """Phase 15: the chunk step as captured CUDA graphs (``utils/graphs.py``)
     against the eager step (``graphs.disable_graphs()``) on the flagship 66
     frames. A graphed pass on a fresh executable (each program captured at
     its first call, chunk 0's stages at chunk 0; its readbacks counted), an
     eager warm pass, then interleaved timed passes (E G G E E G) on the
-    reused executable, then a graphed pass under the sync counter and one
+    reused executable, then a graphed pass under the sync counter, a scan
+    of ``TIER_CHUNKS`` chunks that crosses the graph step's first slot tier
+    graphed and eager (``tier_scan``, ``check_tier_scan``), and one
     device-only trace each way. Every pass's state digests and poses equal;
     a graphed pass on a reused executable replays every program at every
     chunk it runs, chunk 0 included (``bench.expected_replays``), and
@@ -3023,12 +3137,13 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
           f"({len(ref['digests'])} fields), poses and validity bit-equal; one K1 and one K2 launch per chunk in "
           "each, K3, K4 and K5 as the solves, SIFT octaves and verifications count them")
     want = {k: n for k, n in bench.expected_replays(chunks, cfg).items() if n}
-    first_replays = {k: v["replays"] for k, v in first["stats"].items()}
+    # the graph step's tiers the pass does not reach are captured at chunk 1 and never replayed
+    first_replays = {k: v["replays"] for k, v in first["stats"].items() if v["replays"] or k in want}
     if first_replays != {k: n - 1 for k, n in want.items()} or not all(v["captured"] for v in first["stats"].values()):
         raise AssertionError(f"the first pass did not capture every program at its first call and replay it at "
                              f"every later one: {first['stats']}")
     for p in passes[1:]:
-        if p["mode"] == "graphed" and ({k: v["replays"] for k, v in p["stats"].items()} != want
+        if p["mode"] == "graphed" and ({k: v["replays"] for k, v in p["stats"].items() if v["replays"]} != want
                                        or any(v["captured"] for v in p["stats"].values())):
             raise AssertionError(f"a graphed pass on the reused executable does not replay every program at every "
                                  f"chunk: {p['stats']}")
@@ -3037,6 +3152,23 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
     if watched["syncs"]:
         raise AssertionError(f"readbacks in the graphed steady state: {by_site(watched['syncs'])}")
     record_launches(kernels_out, "graphs", watched["launches"])
+
+    # a scan that crosses the graph step's first slot tier: each tier is a
+    # program captured at the first steady chunk, graphed and eager equal
+    from bundlefusion_tpu_torch.io.synthetic import generate_sequence
+
+    tseq = generate_sequence(TIER_CHUNKS * cfg.bundling.submap_size + 1, *FULL, radius=0.5, device=dev)
+    pipe._EXECUTABLES.clear()
+    torch.cuda.empty_cache()
+    tg = tier_scan(torch, tseq, cfg, dev, "graphed")
+    te = tier_scan(torch, tseq, cfg, dev, "eager")
+    del tseq
+    tiers = check_tier_scan(tg, te, cfg, TIER_CHUNKS)
+    phase("graphs", f"tier scan, {TIER_CHUNKS} chunks ({smi}): every tier of the graph step captured at chunk 1 "
+          f"(capture s {json.dumps(tiers['capture_s'])}), replays {json.dumps(tiers['replays'])}, graph_slots the "
+          f"ladder's, graphed and eager state, poses and validity bit-equal; {tiers['chunks_valid']} chunks valid; "
+          f"graph_step device ms by tier (median) {json.dumps(tiers['graph_step_ms'])}; the last keyframe matched "
+          f"over its tier and over every slot: {json.dumps(tiers['tier_vs_capacity'])}")
 
     alias = program_outputs_survive(torch, graphs, dev)
     phase("graphs", f"a program's outputs after another program captured before it replays: {alias}")
@@ -3052,7 +3184,7 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
               f"{b['window_ms']:.1f} ms; device kernels {b['kernels'] / len(seq.poses):.1f} per frame; host launch "
               f"calls {b['host_launch_calls_per_frame']:.1f} per frame {b['host_launch_calls']}")
     with open(os.path.join(OUT_DIR, "graphs_phase.json"), "w") as f:
-        json.dump(dict(device=smi, chunks=chunks, capture_s=capture, busy=busy,
+        json.dump(dict(device=smi, chunks=chunks, capture_s=capture, busy=busy, tiers=tiers,
                        passes=[{k: p[k] for k in ("mode", "fps", "peak_gib", "means", "stats", "launches")}
                                for p in passes]), f, indent=1)
 

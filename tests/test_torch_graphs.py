@@ -20,6 +20,15 @@ are held bit-equal by ``chip_smoke.py``'s phase "graphs").
 the operations of every chunk recorded, and 9 frames on the reused
 executable. The multi-sequence driver, the mesh pipeline's global solve
 and GC are ``test_torch_graphs_sharded.py``.
+
+On a card (marked ``cuda``, skipped elsewhere; this file imports no JAX
+there: ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+tests/test_torch_graphs.py`` from the repo root), the graph step's slot
+tiers: a 256-slot pipeline over a 70-chunk scan crosses tiers 64 and 128;
+every tier is captured at the first steady chunk and replayed at every
+chunk that uses it, the timeline's ``graph_slots`` reads the ladder, and
+the graphed and ``disable_graphs()`` passes are bit-equal
+(``chip_smoke.tier_scan``).
 """
 
 import contextlib
@@ -34,7 +43,6 @@ from bundlefusion_tpu_torch.bundle import pipeline as tpipe
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.utils import graphs
 from torch_oplog import OpLog, assert_same_ops
-from util import cached_sequence
 
 W, H, N = 128, 96, 17  # chunks 0-3 (S = 4)
 STEADY = ("chunk_local", "graph_step", "global_solve", "publish", "plan_fuse")
@@ -86,6 +94,8 @@ def _snapshot(bf) -> dict:
 
 @pytest.fixture(scope="module")
 def seq():
+    from util import cached_sequence  # (the JAX package's renderer: the card's tests import no JAX)
+
     return cached_sequence(N, width=W, height=H)
 
 
@@ -277,3 +287,30 @@ def test_executable_cache_lends_one_owner_at_a_time():
     del b, c
     gc.collect()  # two returned, one kept
     assert len(cache._free) == 1
+
+
+@pytest.mark.cuda
+def test_slot_tiers_on_the_card():
+    """A 256-slot pipeline (tiers 64, 128, 256) over a 70-chunk scan on the
+    card, graphed on a fresh executable and eager: each tier's graph step
+    is captured once, at chunk 1, before any chunk that uses it (it
+    replays at every chunk of its tier, the first tier at all but its
+    first, eager one); ``graph_slots`` is 0, then 64 for chunks 1-63 and
+    128 after; state digests, poses and validity bit-equal
+    (``chip_smoke.check_tier_scan``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from chip_smoke import TIER_CHUNKS, check_tier_scan, tier_scan
+
+    from bundlefusion_tpu_torch.io.synthetic import generate_sequence
+
+    dev = torch.device("cuda", 0)
+    c = _cfg()
+    cfg = dataclasses.replace(c, bundling=dataclasses.replace(c.bundling, max_num_images=256, max_frames=512))
+    seq = generate_sequence(TIER_CHUNKS * cfg.bundling.submap_size + 1, W, H, device=dev)
+    gc.collect()
+    tpipe._EXECUTABLES.clear()
+    graphed = tier_scan(torch, seq, cfg, dev, "graphed")
+    eager = tier_scan(torch, seq, cfg, dev, "eager")
+    out = check_tier_scan(graphed, eager, cfg, TIER_CHUNKS)
+    assert out["replays"] == {"graph_step@64": 62, "graph_step@128": 6, "graph_step@256": 0}, out
