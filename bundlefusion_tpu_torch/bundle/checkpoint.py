@@ -63,7 +63,7 @@ def save_checkpoint(bf: BundleFusion, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     st = bf.state
     dev = {name: state_to_numpy(getattr(st, name)) for name in _STATES}
-    dev.update({name: getattr(st, name).cpu().numpy() for name in _DENSE})
+    dev.update({name: getattr(st, name).cpu().numpy() for name in (*_DENSE, "dense_counts")})
     t = st.table
     live = torch.nonzero(t.key_of_slot != INVALID_KEY).reshape(-1)
     dev["table"] = {
@@ -103,6 +103,8 @@ def load_checkpoint(path: str, *, device: torch.device | str = "cuda") -> Bundle
             copy_into(getattr(st, name), state_from_numpy(dev[name], bf.device, cls))
         for name in _DENSE:
             getattr(st, name).copy_(put(dev[name]))
+        if "dense_counts" in dev:  # a checkpoint from before the dense-term counters: they stay 0
+            st.dense_counts.copy_(put(dev["dense_counts"]))
         tab = dev["table"]
         t = st.table
         for name in ("keys", "slot_of", "key_of_slot"):

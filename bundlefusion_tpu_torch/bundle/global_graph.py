@@ -279,9 +279,12 @@ def global_match(graph: GlobalGraph, k_idx, cache_cam: CameraModel, cfg: Bundlin
     )
 
 
-def global_solve(graph: GlobalGraph, cache_cam: CameraModel | None, cfg: BundlingConfig):
+def global_solve(graph: GlobalGraph, cache_cam: CameraModel | None, cfg: BundlingConfig, stamps=None):
     """Global BA over keyframe poses + pruning; keyframe 0 is the gauge.
-    Updates ``graph`` in place; returns (graph, stats, removed)."""
+    Updates ``graph`` in place; returns (graph, stats, removed). With the
+    dense term (``use_dense_global``) ``stats.dense_counts`` holds its
+    counters (:func:`dense_counts`) and ``stamps`` (``utils/timeline``), if
+    given, stamps the term in each GN iteration."""
     kmax = cfg.max_num_images
     dev = graph.poses.device
     free = graph.valid & (torch.arange(kmax, device=dev) > 0)
@@ -298,9 +301,26 @@ def global_solve(graph: GlobalGraph, cache_cam: CameraModel | None, cfg: Bundlin
     poses, problem, stats, removed = gn.solve_and_prune(
         graph.poses, problem, graph.cache if cfg.use_dense_global else None, cache_cam, cfg,
         gn_iters=cfg.global_gn_iters, pcg_iters=cfg.global_pcg_iters,
-        use_dense=cfg.use_dense_global, prune_rounds=1,
+        use_dense=cfg.use_dense_global, prune_rounds=1, stamps=stamps,
     )
+    if cfg.use_dense_global:
+        stats = dataclasses.replace(stats, dense_counts=dense_counts(graph, dense_on, stats.dense_assoc))
     return _finish_global_solve(graph, poses, problem, cfg), stats, removed
+
+
+def dense_counts(graph: GlobalGraph, dense_on: torch.Tensor, assoc: torch.Tensor) -> torch.Tensor:
+    """The dense term's counters, [5] int32 on the device: the live pairs
+    (``dense_on``); the keyframes in a live pair, as a or as b (the caches
+    the term reads); the valid-depth pixels of the live pairs' first frames,
+    a's, summed (the pixels a live pair projects, in each GN iteration); and
+    the depth and the colour associations, summed over the GN iterations
+    (``assoc``, ``SolveStats.dense_assoc``)."""
+    valid_px = torch.sum(graph.cache.depth > 0.0, dim=(1, 2))  # [K] per keyframe
+    a, b = graph.dense_pairs_a.long(), graph.dense_pairs_b.long()
+    px = torch.sum(torch.where(dense_on, valid_px[a], 0))
+    in_pair = torch.zeros_like(valid_px).index_add_(0, a, dense_on.long()).index_add_(0, b, dense_on.long())
+    return torch.cat([torch.stack([torch.sum(dense_on), torch.sum(in_pair > 0), px]),
+                      torch.sum(assoc, dim=0)]).to(torch.int32)
 
 
 def _finish_global_solve(graph: GlobalGraph, poses, problem: gn.GNProblem, cfg: BundlingConfig) -> GlobalGraph:

@@ -147,6 +147,10 @@ RUNREC_FIELDS = (
     "gc_freed_total", "blocks_touched", "active_blocks", "lost_chunks",
 )
 RUNREC_WIDTH = len(RUNREC_FIELDS)
+# the global solve's dense-term counters (global_graph.dense_counts), int32,
+# in a table of their own beside the rows (the JAX package's rows have none);
+# 0 without use_dense_global
+DENSE_FIELDS = ("dense_pairs_live", "dense_frames_live", "dense_px_valid", "dense_assoc_depth", "dense_assoc_color")
 
 
 @dataclass
@@ -348,7 +352,8 @@ class FusionState:
     local_trajs: torch.Tensor  # [Cmax, S + 1, 4, 4] each chunk's local poses
     chunk_valid: torch.Tensor  # [Cmax] bool
     runlog_rows: torch.Tensor  # [Cmax + 1, RUNREC_WIDTH], read once at finalize
-    stamps: torch.Tensor  # [Cmax + 1, 2 * len(timeline.SPANS)] int64 device clock, read once at finalize
+    stamps: torch.Tensor  # [Cmax + 1, 2 * (len(timeline.SPANS) + dense iters)] int64 device clock, read once
+    dense_counts: torch.Tensor  # [Cmax + 1, len(DENSE_FIELDS)] int32, read once at finalize
     blocks_updated: torch.Tensor  # f32, measured work counter
     gc_freed_total: torch.Tensor  # f32
 
@@ -383,7 +388,8 @@ def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, in
         local_trajs=torch.eye(4, device=dev).repeat(max_chunks, bc.chunk_size, 1, 1),
         chunk_valid=torch.zeros(max_chunks, dtype=torch.bool, device=dev),
         runlog_rows=torch.zeros((max_chunks + 1, RUNREC_WIDTH), device=dev),
-        stamps=timeline.make_table(max_chunks + 1, dev),
+        stamps=timeline.make_table(max_chunks + 1, dev, bc.global_gn_iters if bc.use_dense_global else 0),
+        dense_counts=torch.zeros((max_chunks + 1, len(DENSE_FIELDS)), dtype=torch.int32, device=dev),
         blocks_updated=torch.zeros((), device=dev),
         gc_freed_total=torch.zeros((), device=dev),
     )
@@ -498,6 +504,17 @@ def _plan_fuse_step(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step:
     next chunk."""
     _plan_and_fuse(st, cfg, int_cam, step, carry.stats_in, d16, c8, carry.integrate_mask, budget)
     advance_step(step, submap_size)
+
+
+def _global_solve_step(st: FusionState, step: StepInputs, cache_cam: CameraModel, cfg,
+                       stamps: timeline.Stamps | None = None) -> None:
+    """Stage ``global_solve``: the global BA of the keyframe graph
+    (``global_graph.global_solve``), in place; with its dense term, the
+    term's GN iterations stamped with ``stamps`` and its counters written
+    into row ``step.chunk`` of ``st.dense_counts``."""
+    _, stats, _ = global_graph.global_solve(st.graph, cache_cam, cfg, stamps=stamps)
+    if stats.dense_counts is not None:
+        put_row(st.dense_counts, step.chunk, stats.dense_counts)
 
 
 def _gc(st: FusionState) -> None:
@@ -1159,7 +1176,7 @@ class BundleFusion:
         if self.num_keyframes > 1:
             with self._chunk_stage("global_solve", c):
                 if self.mesh is None:
-                    self._run("global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
+                    self._run("global_solve", _global_solve_step, st, step, self.cache_cam, bc, self._stamps)
                 else:
                     self._run("global_solve", global_graph.global_solve_sharded, st.graph, self.mesh,
                               self.cache_cam, bc)
@@ -1398,6 +1415,7 @@ class BundleFusion:
         ``profile`` timed the stages on the host, its stamped stages' device
         times go to the TimingLog."""
         rows = self.state.runlog_rows[: self.chunk_count].cpu().numpy()
+        dense = self.state.dense_counts[: self.chunk_count].cpu().numpy()
         stamps = self.state.stamps[: self.chunk_count].cpu().numpy()
         offset_ns, err_ns = timeline.calibrate(self.device)
         ints = ("num_keys", "filtered_matches", "pairs_valid", "corr_cursor", "alloc_overflow",
@@ -1409,6 +1427,7 @@ class BundleFusion:
                 rec[k] = int(rec[k])
             for k in ("chunk_valid", "kf_valid", "reloc", "tracking_lost"):
                 rec[k] = bool(rec[k])
+            rec.update({k: int(v) for k, v in zip(DENSE_FIELDS, dense[c])})
             if c in self._host.by_chunk:  # a chunk this pipeline ran (not one restored)
                 rec["timeline"] = timeline.chunk_record(stamps[c], self._host.by_chunk[c], offset_ns, err_ns)
                 for span, (b, e) in rec["timeline"]["device"].items():

@@ -7,6 +7,7 @@ correspondences.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 
@@ -29,6 +30,10 @@ class SolveStats:
     dense_color_res: torch.Tensor  # [iters]
     pcg_final_rz: torch.Tensor  # [iters]
     final_res_norms: torch.Tensor  # [R] per-correspondence residual after solve
+    # [iters, 2] the dense term's depth and colour associations, where it ran
+    dense_assoc: torch.Tensor | None = None
+    # [5] int32 of a global solve with its dense term (global_graph.dense_counts)
+    dense_counts: torch.Tensor | None = None
 
 
 @dataclass
@@ -41,8 +46,10 @@ class GNProblem:
 
 
 def solve_gn(poses, problem: GNProblem, caches: FrameCache | None, cache_cam: CameraModel | None,
-             cfg: BundlingConfig, gn_iters: int, pcg_iters: int, use_dense: bool = True):
-    """Run GN; returns (updated poses [N,4,4], SolveStats)."""
+             cfg: BundlingConfig, gn_iters: int, pcg_iters: int, use_dense: bool = True, stamps=None):
+    """Run GN; returns (updated poses [N,4,4], SolveStats). With ``stamps``
+    (``utils/timeline.Stamps``) the dense term of each iteration is stamped
+    (``timeline.ITERATED``)."""
     n = poses.shape[0]
     dev = poses.device
     # the ramp is f32 arithmetic in the reference: (i + 1) / n, then * weight
@@ -50,24 +57,25 @@ def solve_gn(poses, problem: GNProblem, caches: FrameCache | None, cache_cam: Ca
         ramp = [np.float32(i + 1) / np.float32(gn_iters) for i in range(gn_iters)]
     else:
         ramp = [np.float32(1.0)] * gn_iters
-    stats = []
-    for scale in ramp:
+    stats, assoc = [], []
+    for i, scale in enumerate(ramp):
         sJtJ, sJtr, res_norms = sparse_corr_blocks(poses, problem.corrs, cfg.weight_sparse)
         idx_a, idx_b = problem.corrs.img_a, problem.corrs.img_b
         JtJ, Jtr = sJtJ, sJtr
         if use_dense and caches is not None:
-            dJtJ, dJtr, dstats = dense_pair_blocks(
-                poses, problem.dense_pairs_a, problem.dense_pairs_b, problem.dense_pair_active,
-                caches, cache_cam, cfg,
-                float(np.float32(cfg.weight_dense_depth) * scale),
-                float(np.float32(cfg.weight_dense_color) * scale),
-            )
+            with stamps.iteration(i) if stamps is not None else contextlib.nullcontext():
+                dJtJ, dJtr, dstats = dense_pair_blocks(
+                    poses, problem.dense_pairs_a, problem.dense_pairs_b, problem.dense_pair_active,
+                    caches, cache_cam, cfg,
+                    float(np.float32(cfg.weight_dense_depth) * scale),
+                    float(np.float32(cfg.weight_dense_color) * scale),
+                )
             idx_a = torch.cat([idx_a.long(), problem.dense_pairs_a.long()])
             idx_b = torch.cat([idx_b.long(), problem.dense_pairs_b.long()])
             JtJ = torch.cat([JtJ, dJtJ])
             Jtr = torch.cat([Jtr, dJtr])
-            nd = torch.clamp(torch.sum(dstats.num_valid_depth), min=1)
-            nc = torch.clamp(torch.sum(dstats.num_valid_color), min=1)
+            assoc.append(torch.stack([torch.sum(dstats.num_valid_depth), torch.sum(dstats.num_valid_color)]))
+            nd, nc = torch.clamp(assoc[-1], min=1).unbind()
             dd = torch.sum(dstats.sum_sq_depth) / nd
             dc = torch.sum(dstats.sum_sq_color) / nc
         else:
@@ -83,7 +91,7 @@ def solve_gn(poses, problem: GNProblem, caches: FrameCache | None, cache_cam: Ca
 
     _, _, final_norms = sparse_residuals(poses, problem.corrs)
     s, dd, dc, rz = (torch.stack(list(x)) for x in zip(*stats))
-    return poses, SolveStats(s, dd, dc, rz, final_norms)
+    return poses, SolveStats(s, dd, dc, rz, final_norms, torch.stack(assoc) if assoc else None)
 
 
 def prune_max_residuals(corrs: SparseCorrs, res_norms, max_res_thresh: float, max_removals: int):
@@ -98,13 +106,15 @@ def prune_max_residuals(corrs: SparseCorrs, res_norms, max_res_thresh: float, ma
 
 
 def solve_and_prune(poses, problem: GNProblem, caches, cache_cam, cfg: BundlingConfig, gn_iters: int,
-                    pcg_iters: int, use_dense: bool = True, prune_rounds: int = 1):
+                    pcg_iters: int, use_dense: bool = True, prune_rounds: int = 1, stamps=None):
     """solve -> prune, ``prune_rounds`` times. Returns (poses, updated
-    problem, stats of the last round, total removed)."""
+    problem, stats of the last round, total removed). ``stamps`` as in
+    :func:`solve_gn` (one round: a round's iterations take the same
+    columns)."""
     removed_acc = torch.zeros((), dtype=torch.int32, device=poses.device)
     stats = None
     for _ in range(prune_rounds):
-        poses, stats = solve_gn(poses, problem, caches, cache_cam, cfg, gn_iters, pcg_iters, use_dense)
+        poses, stats = solve_gn(poses, problem, caches, cache_cam, cfg, gn_iters, pcg_iters, use_dense, stamps)
         corrs, removed = prune_max_residuals(problem.corrs, stats.final_res_norms, cfg.max_res_thresh, cfg.prune_iters)
         problem = dataclasses.replace(problem, corrs=corrs)
         removed_acc = removed_acc + removed

@@ -8,10 +8,13 @@ one-thread kernel (``csrc/stamp.cu``) that writes the device's
 ``%globaltimer`` at the row the device tensor ``step.chunk`` holds (plus a
 fixed offset), so a replayed CUDA graph stamps the chunk it runs. Each
 stage's program stamps its begin as its first node and its end as its last;
-``chunk_local`` also stamps its three parts (:data:`CHILDREN`); the eager
-upload stamps its copy on the copy stream, at a row given by the host. On
-the CPU the twin writes ``time.perf_counter_ns()``: host and "device" share
-one clock there.
+``chunk_local`` also stamps its three parts (:data:`CHILDREN`), and
+``global_solve``, where it has a dense term, the term in each GN iteration
+(:data:`ITERATED`, columns of their own after those of :data:`SPANS`, one
+begin and end pair per iteration, in a table made with ``iters``); the
+eager upload stamps its copy on the copy stream, at a row given by the
+host. On the CPU the twin writes ``time.perf_counter_ns()``: host and
+"device" share one clock there.
 
 Host side: :class:`HostSpans` keeps each chunk's host spans and marks from
 the main thread and the ingest workers, in memory. At ``finalize()`` (which
@@ -41,6 +44,8 @@ STAGES = ("chunk_local", "graph_step", "global_solve", "publish", "plan_fuse", "
 CHILDREN = ("sift", "pair_match", "local_ba")
 SPANS = ("upload", *STAGES, *CHILDREN)
 COLUMN = {s: 2 * i for i, s in enumerate(SPANS)}  # begin; end is the next column
+# the span stamped once per GN iteration of the global solve: its dense term
+ITERATED = "global_dense"
 
 
 @kernels.counted
@@ -65,9 +70,10 @@ def stamp(table: torch.Tensor, col: int, row: torch.Tensor | None = None, offset
     kernels.launched(stamp)
 
 
-def make_table(rows: int, device) -> torch.Tensor:
-    """A zeroed stamp table of ``rows`` rows (a stamp of 0 is no stamp)."""
-    return torch.zeros((rows, 2 * len(SPANS)), dtype=torch.int64, device=device)
+def make_table(rows: int, device, iters: int = 0) -> torch.Tensor:
+    """A zeroed stamp table of ``rows`` rows (a stamp of 0 is no stamp), with
+    columns for ``iters`` iterations of :data:`ITERATED`."""
+    return torch.zeros((rows, 2 * (len(SPANS) + iters)), dtype=torch.int64, device=device)
 
 
 @dataclass
@@ -89,6 +95,16 @@ class Stamps:
         self.begin(name)
         yield
         self.end(name)
+
+    @contextlib.contextmanager
+    def iteration(self, i: int):
+        """:data:`ITERATED` in iteration ``i``: its own pair of columns."""
+        col = 2 * (len(SPANS) + i)
+        if col + 1 >= self.table.shape[1]:
+            raise ValueError(f"the stamp table has no columns for iteration {i} of {ITERATED}")
+        stamp(self.table, col, self.row)
+        yield
+        stamp(self.table, col + 1, self.row)
 
 
 def calibrate(device: torch.device, tries: int = 32) -> tuple[int, float]:
@@ -170,17 +186,20 @@ HOST_KEYS = ("pushed", "ingest_s", "profiled", "flush", "graph_slots")
 
 def chunk_record(stamps_row, host: dict, offset_ns: int, err_ns: float) -> dict:
     """One chunk's ``timeline``: ``device`` spans (the stamped ones, on the
-    host clock), ``host`` spans, the marks, flags and counts of
-    :data:`HOST_KEYS` and the clock's half-width ``clock_err_s``, in
-    seconds."""
-    device = {}
-    for s in SPANS:
-        b, e = int(stamps_row[COLUMN[s]]), int(stamps_row[COLUMN[s] + 1])
-        if b and e:
-            device[s] = [(b + offset_ns) * 1e-9, (e + offset_ns) * 1e-9]
+    host clock), ``device_iters`` (:data:`ITERATED`'s stamped iterations, a
+    list of spans in order, where the table has their columns), ``host``
+    spans, the marks, flags and counts of :data:`HOST_KEYS` and the clock's
+    half-width ``clock_err_s``, in seconds."""
+    def span(col):
+        b, e = int(stamps_row[col]), int(stamps_row[col + 1])
+        return [(b + offset_ns) * 1e-9, (e + offset_ns) * 1e-9] if b and e else None
+
+    device = {s: span(COLUMN[s]) for s in SPANS}
+    iters = [span(col) for col in range(2 * len(SPANS), len(stamps_row), 2)]
     return {"profiled": bool(host.get("profiled", False)), "flush": bool(host.get("flush", False)),
             "clock_err_s": err_ns * 1e-9, "pushed": host.get("pushed"), "ingest_s": host.get("ingest_s", 0.0),
-            "graph_slots": host.get("graph_slots", 0), "device": device,
+            "graph_slots": host.get("graph_slots", 0), "device": {s: v for s, v in device.items() if v},
+            "device_iters": {ITERATED: [v for v in iters if v]} if any(iters) else {},
             "host": {k: v for k, v in host.items() if k not in HOST_KEYS}}
 
 

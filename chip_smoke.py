@@ -195,6 +195,22 @@ exits non-zero; there is no CPU fallback):
                 programs of one executable: the outputs of the one
                 captured second survive a replay of the first (they are
                 not in the shared pool).
+ 16. denseref — the dense global term on the benchmark's dense cell
+                (``bf640-1cm-denseglobal.room-sweep``'s configuration and
+                traffic at ``DENSE_SEED``), through ``push_frame`` to chunk
+                ``DENSE_CHUNK``: after chunks 0 and 1 (the captures),
+                readbacks only at the streaming checks;
+                global_solve's inputs at that chunk snapshotted on the
+                pipeline's stream, and the blocks that its replayed graph's
+                first GN iteration computed at all 4,096 slots (copied
+                into a buffer by a copy captured with the stage), against
+                the plain float64 reference
+                (``benchmark/reference/dense_ba.py``, in blocks of pairs on
+                the card): the share of live pairs within every tolerance
+                (``dense_pair_errors``), slots not live all zero, and a
+                bfloat16 control that fails; the card's name and power
+                limit, the pipeline's peak memory and graph_step,
+                global_solve and global_dense medians by slot tier.
 
 Phases 4-14 run the chunk step graphed (each program captured at its first
 call when its executable is fresh, chunk 0's stages at chunk 0, the graph
@@ -1442,7 +1458,8 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
     second chunk on); the timeline's stamps twice per stage the chunk runs
     (``global_solve`` from the second chunk on, ``gc`` every
     ``gc_every_chunks``), six for ``chunk_local``'s parts and two for the
-    upload (``finalize()``'s clock calibration is not counted)."""
+    upload (``finalize()``'s clock calibration is not counted), and with
+    the dense global term two more per global GN iteration."""
     bc, ac = cfg.bundling, cfg.app
     h, w, octaves = ac.input_height, ac.input_width, 0
     for _ in range(bc.sift_octaves):
@@ -1450,9 +1467,10 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
             break
         octaves, h, w = octaves + 1, -(-h // 2), -(-w // 2)
     gcs = chunks // ac.gc_every_chunks if ac.gc_every_chunks else 0
+    dense = 2 * bc.global_gn_iters if bc.use_dense_global else 0  # global_dense, each GN iteration
     return {"tsdf_integrate": chunks, "preprocess": chunks, "sift_sample": 2 * octaves * chunks,
             "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters,
-            "dense_verify": 3 * chunks - 1, "stamp": 16 * chunks + 2 * (chunks - 1) + 2 * gcs}
+            "dense_verify": 3 * chunks - 1, "stamp": 16 * chunks + (2 + dense) * (chunks - 1) + 2 * gcs}
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
@@ -2575,6 +2593,203 @@ def run_paths(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
         raise AssertionError(f"4 mm voxels: chunks valid {[r['chunk_valid'] for r in recs]}, ATE {ate}")
 
 
+# phase 16: the dense cell's traffic to chunk DENSE_CHUNK at DENSE_SEED
+DENSE_CELL = "bf640-1cm-denseglobal.room-sweep"
+DENSE_SPARSE_PEAK = 18.55e9  # bytes: bf640-1cm.room-sweep's memory_peak_bytes (PERF.md §4)
+DENSE_SEED = 2147480117
+DENSE_CHUNK = 100
+# the dense term against its plain reference, per live pair: counts of
+# depth and colour associations within 0.2% of the reference's (at least
+# one pixel: float32 tests flip pixels within rounding of a threshold), JtJ
+# within 1e-4 relative Frobenius error (float32 sums of a pair's per-pixel
+# products), Jtr within 1e-3 (its signed terms cancel, so its relative
+# error exceeds theirs); a pixel that flips moves its pair's blocks by
+# about one part in its count, so on the card at least DENSE_PAIR_SHARE of
+# the live pairs pass all four
+DENSE_COUNT_SHARE, DENSE_JTJ_TOL, DENSE_JTR_TOL, DENSE_PAIR_SHARE = 0.002, 1e-4, 1e-3, 0.995
+
+
+def dense_pair_errors(torch, JtJ, Jtr, n_depth, n_color, want) -> np.ndarray:
+    """[P, 4] per pair: each count's difference over its allowance, JtJ's
+    and Jtr's relative Frobenius errors against the reference ``want``
+    (``dense_ba.PairTerms``; 0 where both are 0)."""
+    def rel(got, ref):
+        d = torch.linalg.vector_norm((got.double().cpu() - ref).reshape(ref.shape[0], -1), dim=-1)
+        r = torch.linalg.vector_norm(ref.reshape(ref.shape[0], -1), dim=-1)
+        return torch.where(r > 0, d / torch.where(r > 0, r, 1.0), d)
+
+    def over(got, ref):
+        allow = torch.clamp((DENSE_COUNT_SHARE * ref.double()).floor(), min=1.0)
+        return (got.cpu().double() - ref.double()).abs() / allow
+
+    return torch.stack([over(n_depth, want.n_depth), over(n_color, want.n_color), rel(JtJ, want.JtJ),
+                        rel(Jtr, want.Jtr)], -1).numpy()
+
+
+def dense_pairs_within(err: np.ndarray) -> np.ndarray:
+    """Which pairs of :func:`dense_pair_errors` pass every tolerance."""
+    return (err[:, 0] <= 1) & (err[:, 1] <= 1) & (err[:, 2] <= DENSE_JTJ_TOL) & (err[:, 3] <= DENSE_JTR_TOL)
+
+
+def run_dense_reference(torch, T, dev) -> None:
+    """Phase 16: the dense global term of the benchmark's dense cell against
+    its plain reference: the blocks the timed path computed at chunk
+    ``DENSE_CHUNK``, against the reference at that chunk's inputs."""
+    from benchmark import drive, spec
+    from benchmark.reference import dense_ba as ref
+    from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.bundle.pipeline import DENSE_FIELDS
+    from bundlefusion_tpu_torch.ops.preprocess import FrameCache
+    from bundlefusion_tpu_torch.solver import gn, residuals
+
+    smi = bench.device_line(dev)
+    cell = spec.cell(DENSE_CELL)
+    cfg = spec.port_config(cell.config)
+    bc, ac = cfg.bundling, cfg.app
+    slots = bc.max_dense_pairs_global
+    if not (bc.dense_weight_ramp and bc.global_gn_iters > 1):
+        raise AssertionError("dense cell: the first GN iteration is told by its ramped weight; the ramp is off")
+    frames = DENSE_CHUNK * bc.submap_size + bc.chunk_size
+    t0 = time.perf_counter()
+    scan = drive.make_scan(cell.mix, ac.input_width, ac.input_height, DENSE_SEED, dev, frames=frames)
+    phase("denseref", f"{DENSE_CELL}: {frames} frames of {cell.mix['scan_frames']} rendered from seed {DENSE_SEED} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the term as the solve calls it; in a global solve's first GN iteration
+    # (its slots, its ramped weight) its outputs are copied into ``probe``
+    # too: a device copy, captured with global_solve's graph and replayed
+    # with it, so the probe holds the blocks of the chunk last solved
+    probe = (torch.zeros(slots, 12, 12, device=dev), torch.zeros(slots, 12, device=dev),
+             torch.zeros(slots, dtype=torch.int32, device=dev), torch.zeros(slots, dtype=torch.int32, device=dev))
+    scale = np.float32(1.0) / np.float32(bc.global_gn_iters)  # the ramp's first step, as solve_gn computes it
+    weights = (float(np.float32(bc.weight_dense_depth) * scale), float(np.float32(bc.weight_dense_color) * scale))
+    blocks, probed = gn.dense_pair_blocks, []
+
+    def dense_pair_blocks(poses, pairs_a, pairs_b, pair_active, caches, cache_cam, bcfg, w_depth, w_color):
+        JtJ, Jtr, st = blocks(poses, pairs_a, pairs_b, pair_active, caches, cache_cam, bcfg, w_depth, w_color)
+        if pairs_a.shape[0] == slots and (w_depth, w_color) == weights:
+            for dst, src in zip(probe, (JtJ, Jtr, st.num_valid_depth, st.num_valid_color)):
+                dst.copy_(src)
+            probed.append(torch.cuda.is_current_stream_capturing())
+        return JtJ, Jtr, st
+
+    gn.dense_pair_blocks = dense_pair_blocks
+    try:
+        bf = drive.pipeline_factory(scan, cfg, dev)()
+        snap = {}
+        run_stage = bf._run
+
+        def run(name, fn, *args):
+            """The stage; at chunk DENSE_CHUNK global_solve's inputs copied
+            on the pipeline's stream before it runs and the probe after it
+            (device copies: no read)."""
+            at = name == "global_solve" and bf.num_keyframes - 1 == DENSE_CHUNK
+            if at:
+                g = bf.state.graph
+                snap.update(poses=g.poses.clone(), valid=g.valid.clone(), a=g.dense_pairs_a.clone(),
+                            b=g.dense_pairs_b.clone(), on=g.dense_pair_on.clone(),
+                            cache=FrameCache(*(getattr(g.cache, f.name).clone()
+                                               for f in dataclasses.fields(FrameCache))))
+            out = run_stage(name, fn, *args)
+            if at:
+                snap["timed"] = tuple(x.clone() for x in probe)
+            return out
+
+        bf._run = run
+        # chunks 0 and 1 first: each program's eager run and capture (and
+        # their constants' uploads) lie there; the steady state is what follows
+        warm = 2 * bc.submap_size + 1
+        for i in range(warm):
+            bf.push_frame(scan.depth[i], scan.color[i])
+        bf.sync()
+
+        def steady():
+            for i in range(warm, frames):
+                bf.push_frame(scan.depth[i], scan.color[i])
+            bf.flush()
+
+        t0 = time.perf_counter()
+        sites = sync_sites(torch, steady)
+        dt = time.perf_counter() - t0
+        del bf._run  # no cycle through the hook
+        bf.outputs()
+        stats = bf.graph_stats["global_solve"]
+    finally:
+        gn.dense_pair_blocks = blocks
+    peak = torch.cuda.max_memory_allocated()
+    recs = chunk_records(bf)
+    stray = [x for x in sites if "_streaming_step" not in x]
+    phase("denseref", f"({smi}) {frames} frames through push_frame, {frames - warm} of them in {dt:.2f} s under the "
+          f"sync counter: {len(sites)} readbacks, every one at a streaming check: {not stray} {by_site(sites)}; "
+          f"chunks valid "
+          f"{sum(r['chunk_valid'] for r in recs)} of {len(recs)}; pipeline peak memory {peak / 1e9:.3f} GB "
+          f"({(peak - DENSE_SPARSE_PEAK) / 1e9:+.3f} GB against bf640-1cm's {DENSE_SPARSE_PEAK / 1e9:.2f}); "
+          f"global_solve {stats}, its first-iteration blocks probed in {len(probed)} runs of the stage's code "
+          f"(capturing: {probed})")
+    if stray or not snap:
+        raise AssertionError(f"dense cell: readbacks off the streaming checks {by_site(stray)}, snapshot {bool(snap)}")
+    if not (stats["captured"] and stats["replays"] > 0 and True in probed):
+        raise AssertionError(f"dense cell: global_solve not replayed from a graph holding the probe: {stats}, "
+                             f"{probed}")
+
+    # graph_step, global_solve and global_dense medians by slot tier (kept chunks)
+    tiers: dict[int, dict[str, list]] = {}
+    for r in recs:
+        tl = r["timeline"]
+        if r["chunk"] == 0 or tl["flush"] or tl["profiled"]:
+            continue
+        t = tiers.setdefault(tl["graph_slots"], {"graph_step": [], "global_solve": [], "global_dense": []})
+        for s in ("graph_step", "global_solve"):
+            t[s].append(tl["device"][s][1] - tl["device"][s][0])
+        t["global_dense"].append(sum(e - b for b, e in tl["device_iters"]["global_dense"]))
+    phase("denseref", "device ms a chunk by slot tier (medians; chunks): " + json.dumps(
+        {t: {"chunks": len(v["graph_step"]), **{s: round(statistics.median(x) * 1e3, 3) for s, x in v.items()}}
+         for t, v in sorted(tiers.items())}))
+    rec = recs[DENSE_CHUNK]
+    phase("denseref", f"chunk {DENSE_CHUNK}'s counters: " + json.dumps({k: rec[k] for k in DENSE_FIELDS}))
+
+    # the timed path's first-iteration blocks at every slot against the
+    # reference at the inputs it had
+    on = snap["on"] & snap["valid"][snap["a"].long()] & snap["valid"][snap["b"].long()]
+    live = int(on.sum())
+    if live != rec["dense_pairs_live"] or snap["on"].shape[0] != slots:
+        raise AssertionError(f"dense cell: {live} live pairs in the snapshot, {rec['dense_pairs_live']} counted")
+    prm = ref.Params(dataclasses.asdict(bc))
+    rcache = ref.Cache(*(getattr(snap["cache"], f.name) for f in dataclasses.fields(FrameCache)))
+    t0 = time.perf_counter()
+    want = ref.pairs_in_blocks(snap["poses"].double().cpu(), snap["a"][on].cpu(), snap["b"][on].cpu(), rcache,
+                               ref.Camera(*bf.cache_cam), prm, prm.scale(0, bc.global_gn_iters), device=dev)
+    t_ref = time.perf_counter() - t0
+
+    def bf16(x):
+        return x.bfloat16().float()
+
+    JtJ, Jtr, st = residuals.dense_pair_blocks(  # the control: the term from bfloat16-rounded inputs
+        bf16(snap["poses"]), snap["a"], snap["b"], on,
+        FrameCache(*(bf16(getattr(snap["cache"], f.name)) for f in dataclasses.fields(FrameCache))),
+        bf.cache_cam, bc, *weights)
+    out = {}
+    for name, (JtJ, Jtr, n_depth, n_color) in (("timed", snap["timed"]),
+                                               ("bfloat16", (JtJ, Jtr, st.num_valid_depth, st.num_valid_color))):
+        err = dense_pair_errors(torch, JtJ[on], Jtr[on], n_depth[on], n_color[on], want)
+        ok = dense_pairs_within(err)
+        zero = not (JtJ[~on].any() or Jtr[~on].any() or n_depth[~on].any())
+        out[name] = {"pairs_within": float(ok.mean()), "inactive_zero": bool(zero),
+                     **{f"{k}_max": float(err[:, i].max())
+                        for i, k in enumerate(("depth_over", "color_over", "JtJ", "Jtr"))},
+                     **{f"{k}_p99": float(np.quantile(err[:, i], 0.99)) for i, k in ((2, "JtJ"), (3, "Jtr"))}}
+    phase("denseref", f"first-iteration dense blocks of the replayed global_solve at {slots} slots ({live} live, "
+          f"{int(want.n_depth.sum())} depth and {int(want.n_color.sum())} colour associations in the reference, "
+          f"computed in float64 on the card in {t_ref:.1f} s): " + json.dumps(out))
+    if not (out["timed"]["pairs_within"] >= DENSE_PAIR_SHARE and out["timed"]["inactive_zero"]):
+        raise AssertionError(f"dense cell: the timed path's blocks against the reference {out['timed']}")
+    if out["bfloat16"]["pairs_within"] >= DENSE_PAIR_SHARE:
+        raise AssertionError(f"dense cell: the bfloat16 control passes {out['bfloat16']}")
+    del bf, snap, scan
+
+
 def bench_subprocess(name: str, env_extra: dict, smi: str) -> dict:
     """``python -m bundlefusion_tpu_torch.bench`` as a user runs it; its
     output goes to ``chiprun_out/bench_<name>.log``. Checks the result
@@ -3239,6 +3454,7 @@ def main() -> int:
     timed("paths", run_paths, torch, T, dev, kern, seq, cfg, ref)
     timed("bench", run_bench, torch, T, dev, kern, seq)
     timed("graphs", run_graphs, torch, T, dev, kern, seq, cfg)
+    timed("denseref", run_dense_reference, torch, T, dev)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

@@ -16,14 +16,25 @@ and host spans on one clock (on the CPU the stamps' twin reads the host's
   and its stage totals are the stamped spans;
 * ``timeline.idle_account`` splits a run into its stamped stages and the
   device's idle time by cause: the known answer on synthetic records, and
-  the whole of the pipeline's run from its host spans.
+  the whole of the pipeline's run from its host spans;
+* with the dense global term (``use_dense_global``), ``global_solve``
+  stamps the term in each GN iteration (``device_iters["global_dense"]``,
+  inside the stage, in order), and each chunk's runlog record carries its
+  counters: the live pairs (``dense_on`` summed), their keyframes, a's
+  valid pixels over the live pairs and the associations, equal with the
+  chunk step's programs run eagerly (``disable_graphs``); a checkpoint
+  keeps them, and one saved without them restores them as 0; without the
+  term the counters read 0 and nothing is stamped.
 
 64x48 at the tiny configuration, 15 frames: chunks 0-2 and a flush chunk,
-``gc`` after chunks 1 and 3.
+``gc`` after chunks 1 and 3; the dense term's runs at 128x96 (where the
+orbit's keyframes pass the inlier gate), 15 frames.
 """
 
+import contextlib
 import dataclasses
 import gc
+import pickle
 import threading
 
 import pytest
@@ -33,7 +44,7 @@ from bundlefusion_tpu_torch.bundle import pipeline as tpipe
 from bundlefusion_tpu_torch.bundle.checkpoint import load_checkpoint, save_checkpoint
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
-from bundlefusion_tpu_torch.utils import timeline
+from bundlefusion_tpu_torch.utils import graphs, timeline
 from bundlefusion_tpu_torch.utils.timing import TimingLog
 
 N = 15
@@ -247,3 +258,128 @@ def test_idle_account_covers_the_pipelines_run(run):
     assert all(v >= 0 for k, v in acc.items() if k != "unaccounted"), acc
     assert acc["unaccounted"] == pytest.approx(0.0, abs=1e-9)
     assert acc["stages"] > 0 and acc["upload"] > 0 and acc["launch"] > 0
+
+
+DENSE_PAIRS = 16  # the dense-pair list's slots in the dense runs
+
+
+def _dense_cfg():
+    c = tiny_test_config()
+    return dataclasses.replace(
+        c, app=dataclasses.replace(c.app, input_width=128, input_height=96, integration_width=128,
+                                   integration_height=96),
+        bundling=dataclasses.replace(c.bundling, use_dense_global=True, max_dense_pairs_global=DENSE_PAIRS))
+
+
+@pytest.fixture(scope="module")
+def dense_runs():
+    """The same 15 frames with the dense global term, the chunk step's
+    programs as the pipeline runs them and under ``disable_graphs``."""
+    seq = generate_sequence(N, width=128, height=96, device="cpu")
+    out = {}
+    for mode in ("graphed", "eager"):
+        with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            bf = tpipe.BundleFusion(seq.camera, _dense_cfg(), anchor_pose=seq.poses[0], device="cpu")
+            for i in range(N):
+                bf.push_frame(seq.depth[i], seq.color[i])
+            bf.flush()
+            bf.outputs()
+        out[mode] = bf
+    return out
+
+
+def test_global_dense_is_stamped_inside_global_solve(dense_runs):
+    bf = dense_runs["graphed"]
+    iters = bf.config.bundling.global_gn_iters
+    recs = _records(bf)
+    assert recs[0]["timeline"]["device_iters"] == {}
+    for r in recs[1:]:
+        tl = r["timeline"]
+        (b, e), spans = tl["device"]["global_solve"], tl["device_iters"]["global_dense"]
+        flat = [t for s in spans for t in s]
+        assert len(spans) == iters and flat == sorted(flat) and b <= flat[0] and flat[-1] <= e, r["chunk"]
+
+
+def test_dense_counters(dense_runs):
+    bf = dense_runs["graphed"]
+    g = bf.state.graph
+    assert bool(g.valid[: bf.num_keyframes].all())  # no keyframe dropped: the final graph's flags held throughout
+    valid_px = (g.cache.depth > 0).sum(dim=(1, 2))
+    recs = _records(bf)
+    iters = bf.config.bundling.global_gn_iters
+    assert [r[k] for k in tpipe.DENSE_FIELDS for r in recs[:1]] == [0] * len(tpipe.DENSE_FIELDS)
+    for r in recs[1:]:
+        c = r["chunk"]
+        on = g.dense_pair_on & g.valid[g.dense_pairs_a.long()] & g.valid[g.dense_pairs_b.long()] & (
+            g.dense_pairs_b <= c)  # the pairs of keyframes 0..c: those of the chunk's solve
+        frames = set(g.dense_pairs_a[on].tolist()) | set(g.dense_pairs_b[on].tolist())
+        assert r["dense_pairs_live"] == int(on.sum()) and r["dense_frames_live"] == len(frames), c
+        assert r["dense_px_valid"] == int(valid_px[g.dense_pairs_a.long()][on].sum()), c
+        # each iteration associates at most every valid pixel of a, and some
+        for k in ("dense_assoc_depth", "dense_assoc_color"):
+            assert 0 < r[k] <= iters * r["dense_px_valid"], (c, k)
+    dense_on = g.dense_pair_on & g.valid[g.dense_pairs_a.long()] & g.valid[g.dense_pairs_b.long()]
+    assert recs[-1]["dense_pairs_live"] == int(dense_on.sum()) > 0
+
+
+def test_graphed_and_eager_dense_counters_are_equal(dense_runs):
+    a, b = (_records(dense_runs[m]) for m in ("graphed", "eager"))
+    assert [{k: r[k] for k in tpipe.DENSE_FIELDS} for r in a] == [{k: r[k] for k in tpipe.DENSE_FIELDS} for r in b]
+    assert [r["dense_pairs_live"] for r in a][-1] > 0
+
+
+@pytest.mark.parametrize("saved", ("with_counters", "before_counters"))
+def test_checkpoint_keeps_the_dense_counters(dense_runs, tmp_path, saved):
+    bf = dense_runs["graphed"]
+    path = str(tmp_path / "dense.ckpt")
+    save_checkpoint(bf, path)
+    want = bf.state.dense_counts
+    if saved == "before_counters":  # a checkpoint written before the counters existed
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        del data["device"]["dense_counts"]
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+        want = torch.zeros_like(want)
+    assert bool(bf.state.dense_counts.any())
+    assert torch.equal(load_checkpoint(path, device="cpu").state.dense_counts, want)
+
+
+def test_sparse_pipeline_has_no_dense_term(run):
+    bf, _ = run
+    for r in _records(bf):
+        assert r["timeline"]["device_iters"] == {} and not any(r[k] for k in tpipe.DENSE_FIELDS)
+    assert bf.state.stamps.shape[1] == 2 * len(timeline.SPANS)
+
+
+@pytest.mark.cuda
+def test_dense_counters_graphed_and_eager_on_the_card():
+    """On a card the dense runs' counters and stamps from the captured
+    graphs (global_solve captured at chunk 1, replayed after) equal those
+    of the eager step (``disable_graphs``); this file imports no JAX, so
+    ``python -m pytest --noconftest -p no:cacheprovider -m cuda
+    tests/test_torch_timeline.py`` runs it there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda", 0)
+    seq = generate_sequence(N, width=128, height=96, device=dev)
+    gc.collect()
+    tpipe._EXECUTABLES.clear()
+    recs = {}
+    for mode in ("graphed", "eager"):
+        with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
+            bf = tpipe.BundleFusion(seq.camera, _dense_cfg(), anchor_pose=seq.poses[0], device=dev)
+            for i in range(N):
+                bf.push_frame(seq.depth[i], seq.color[i])
+            bf.flush()
+            bf.outputs()
+        stats = bf.graph_stats["global_solve"]
+        assert (stats["captured"], stats["replays"] > 0) == ((True, True) if mode == "graphed" else (False, False))
+        recs[mode] = _records(bf)
+        del bf
+        gc.collect()
+    a, b = recs["graphed"], recs["eager"]
+    assert [[r[k] for k in tpipe.DENSE_FIELDS] for r in a] == [[r[k] for k in tpipe.DENSE_FIELDS] for r in b]
+    assert a[-1]["dense_pairs_live"] > 0
+    for r in a[1:]:
+        assert len(r["timeline"]["device_iters"]["global_dense"]) == tiny_test_config().bundling.global_gn_iters
