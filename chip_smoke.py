@@ -39,8 +39,15 @@ exits non-zero; there is no CPU fallback):
                 and with 128 keyframe slots filled) and its edge cases
                 (``verify_edge_inputs``), timed eagerly and in a CUDA graph
                 against its twin and the matmul- and gather-form dense
-                verification it replaced. Every kernel bit-equal to its
-                twin.
+                verification it replaced; K6 (the dense pair term of
+                bundle adjustment) at the local solve's 55 pairs and the
+                global list's 4,096 slots with 425 live over 88
+                keyframes (``k6_cases``) and its edge cases
+                (``pair_edge_inputs``), timed eagerly and in a CUDA graph
+                against its twin and the einsum form it replaced
+                (``einsum_dense_pair_blocks``), beside the bound of
+                ``benchmark/counts/dense.py``. Every kernel bit-equal to
+                its twin.
   4. slice    — the flagship configuration of ``bench.py`` (640x480, 262,144
                 blocks, 1 cm voxels) on 66 rendered frames through
                 push_frame -> flush -> outputs (async ingest, the default):
@@ -1170,8 +1177,261 @@ def check_k5(torch, dev, cache, poses, cam):
                         share_of_bound_in_graph=g["bound_ms"] / g["graph_ms"], edge_cases=edges, cases=out)
 
 
+def einsum_dense_pair_blocks(poses, pairs_a, pairs_b, pair_active, caches, cam, cfg, weight_depth, weight_color):
+    """The port's dense pair term before K6, the JAX package's form: every
+    slot's caches gathered, b's ten channels concatenated and sampled with
+    ``bilinear_sample_gather``, the [P, M, 12] Jacobians contracted per
+    pixel by einsums, slots not active multiplied by zero. K6's yardstick
+    on the card and in the CPU tests; the port does not call it."""
+    import torch
+    from bundlefusion_tpu_torch.geometry import se3
+    from bundlefusion_tpu_torch.geometry.camera import project
+    from bundlefusion_tpu_torch.ops.preprocess import bilinear_sample_gather
+    from bundlefusion_tpu_torch.solver.residuals import DenseStats, point_jacobian
+
+    pa, pb = pairs_a.long(), pairs_b.long()
+    Ta, Tb, cache_a, cache_b = poses[pa], poses[pb], caches.index(pa), caches.index(pb)
+    p = Ta.shape[0]
+    pts_a = cache_a.points.reshape(p, -1, 3)
+    valid_a = cache_a.depth.reshape(p, -1) > 0.0
+    Tb_inv = se3.mat_inverse(Tb)
+    Rb_inv = Tb_inv[:, :3, :3]
+    p_aw = se3.transform_points(Ta, pts_a)
+    p_in_b = se3.transform_points(Tb_inv, p_aw)
+    uv, proj_ok = project(cam, p_in_b)
+    stack_b = torch.cat([cache_b.points, cache_b.normals, cache_b.intensity[..., None], cache_b.grad,
+                         cache_b.depth[..., None]], dim=-1)
+    samp, inb = bilinear_sample_gather(stack_b, uv)
+    q_b, n_b, i_b, g_b, d_b = samp[..., 0:3], samp[..., 3:6], samp[..., 6], samp[..., 7:9], samp[..., 9]
+    n_b_norm = torch.linalg.vector_norm(n_b, dim=-1, keepdim=True)
+    n_b = n_b / torch.clamp(n_b_norm, min=1e-9)
+    q_w = se3.transform_points(Tb, q_b)
+    n_w = se3.rotate_vectors(Tb, n_b)
+    diff = p_aw - q_w
+    dist = torch.linalg.vector_norm(diff, dim=-1)
+    ndot = torch.sum(se3.rotate_vectors(Ta, cache_a.normals.reshape(p, -1, 3)) * n_w, dim=-1)
+    assoc_ok = (valid_a & proj_ok & inb & (d_b > 0.0) & (n_b_norm[..., 0] > 0.5)
+                & (dist < cfg.dense_dist_thresh) & (ndot > cfg.dense_normal_thresh))
+    r_d = torch.sum(n_w * diff, dim=-1)
+    J_d = torch.cat([torch.linalg.cross(p_aw, n_w, dim=-1), n_w,
+                     torch.linalg.cross(n_w, diff, dim=-1) - torch.linalg.cross(q_w, n_w, dim=-1), -n_w], dim=-1)
+    w_d = torch.where(assoc_ok, weight_depth, 0.0)
+    r_c = cache_a.intensity.reshape(p, -1) - i_b
+    z = torch.clamp(p_in_b[..., 2], min=1e-6)
+    zero = torch.zeros_like(z)
+    dpi = torch.stack([torch.stack([cam.fx / z, zero, -cam.fx * p_in_b[..., 0] / (z * z)], dim=-1),
+                       torch.stack([zero, cam.fy / z, -cam.fy * p_in_b[..., 1] / (z * z)], dim=-1)], dim=-2)
+    dh_da = torch.einsum("pij,pmjk->pmik", Rb_inv, point_jacobian(p_aw))
+    Jc_a = -torch.einsum("pmk,pmkj->pmj", torch.einsum("pmc,pmck->pmk", g_b, dpi), dh_da)
+    J_c = torch.cat([Jc_a, -Jc_a], dim=-1)
+    color_ok = (assoc_ok & (torch.abs(r_c) < cfg.dense_color_thresh)
+                & (torch.linalg.vector_norm(g_b, dim=-1) > cfg.dense_color_grad_min))
+    w_c = torch.where(color_ok, weight_color, 0.0)
+    JtJ = torch.einsum("pmi,pm,pmj->pij", J_d, w_d, J_d) + torch.einsum("pmi,pm,pmj->pij", J_c, w_c, J_c)
+    Jtr = torch.einsum("pmi,pm->pi", J_d, w_d * r_d) + torch.einsum("pmi,pm->pi", J_c, w_c * r_c)
+    act = pair_active.to(JtJ.dtype)
+    return JtJ * act[:, None, None], Jtr * act[:, None], DenseStats(
+        torch.sum(assoc_ok, dim=-1).to(torch.int32) * pair_active,
+        torch.sum(color_ok, dim=-1).to(torch.int32) * pair_active,
+        torch.sum(torch.where(assoc_ok, r_d * r_d, 0.0), dim=-1) * act,
+        torch.sum(torch.where(color_ok, r_c * r_c, 0.0), dim=-1) * act)
+
+
+K6_EDGE_CASES = ("not_live", "no_valid_depth", "off_image", "nan_coords", "colour_fails", "image_edges")
+K6_SLOTS = 4096  # the global dense-pair list (bf640-1cm-denseglobal's max_dense_pairs_global)
+K6_KEYFRAMES, K6_LIVE = 101, 425  # the dense cell at chunk 100 (DENSE_CHUNK): its keyframes, its live pairs
+
+
+def pair_edge_inputs(case: str, h: int = 24, w: int = 32):
+    """K6's edge cases (``K6_EDGE_CASES``) on four random cache frames
+    (``_field_frame``, with the intensity's gradient): frames 1 and 3 are
+    noisy copies of frames 0 and 2 at poses moved by up to 0.05 rad and
+    ~1.5 cm an axis; eight slots: (0, 1) live, (0, 1) not live, (2, 3) live
+    carrying the case, (1, 0) live, four unused (0, 0) not live. Cases:
+    every slot not live; frame 2 without depth; frame 3 moved 0.6 m along
+    its x axis and frame 1 put 10 m behind frame 0 (part of a, or all of
+    it, projects off b); NaN in a band of frame 2's valid points (NaN
+    coordinates); frame 3's intensity raised by 0.5 (every colour test
+    fails); identity poses with fx = fy = 1, cx = cy = 0, frame 2's points
+    onto w - 1 and h - 1, into the 1e-4 band past them, just past it and
+    onto the clamp, and frame 3 the plane z = 1 seen from there. Returns numpy (poses [4, 4, 4], pairs_a, pairs_b
+    [8] int32, active [8], cache fields [4, h, w(, c)] as FrameCache orders
+    them, camera (fx, fy, cx, cy, width, height))."""
+    rng = np.random.default_rng(300 + K6_EDGE_CASES.index(case))
+    f32 = np.float32
+    cam = (1.0, 1.0, 0.0, 0.0, w, h) if case == "image_edges" else (0.9 * w, 0.9 * w, (w - 1) / 2, (h - 1) / 2, w, h)
+    frames, poses = [], []
+    for _ in range(2):
+        d, p, n, i, _ = _field_frame(rng, h, w, cam)
+        db = np.where(d > 0, d + 0.004 * rng.standard_normal(d.shape), 0.0).astype(f32)
+        pb = (p * np.where(d > 0, db / np.where(d > 0, d, 1.0), 0.0)[..., None]).astype(f32)
+        nb = n + 0.02 * rng.standard_normal(n.shape)
+        nb = (nb / np.linalg.norm(nb, axis=-1, keepdims=True)).astype(f32)
+        ib = np.clip(i + 0.03 * rng.standard_normal(i.shape), 0, 1).astype(f32)
+        frames += [(d, p, n, i), (db, pb, nb, ib)]
+        T = _small_motion(rng, rng.uniform(0, 0.05), 0.015)
+        poses += [T, T @ _small_motion(rng, rng.uniform(0, 0.05), 0.015)]
+    poses = np.stack(poses)
+    fields = [np.stack(x).astype(f32) for x in zip(*frames)]
+    if case == "no_valid_depth":
+        fields[0][2] = 0.0
+    elif case == "off_image":
+        poses[3, :3, 3] += 0.6 * poses[3, :3, 0]
+        poses[1, :3, 3] -= 10.0 * poses[1, :3, 2]
+    elif case == "nan_coords":
+        band = fields[1][2, h // 3: h // 2]
+        band[fields[0][2, h // 3: h // 2] > 0] = np.nan
+    elif case == "colour_fails":
+        fields[3][3] += 0.5
+    elif case == "image_edges":
+        poses[:] = np.eye(4, dtype=f32)
+        us = np.array([w - 1.0, w - 1.0 + 5e-5, w - 1.0 + 9e-5, w - 1.0 + 2e-4, w - 1.001, w - 2.0, 0.0, -1e-7], f32)
+        vs = np.array([h - 1.0, h - 1.0 + 5e-5, h - 1.0 + 9e-5, h - 1.0 + 2e-4, h - 1.001, 1.5, 0.0, -1e-7], f32)
+        fields[0][2] = 1.0
+        fields[1][2, ..., 0] = np.resize(us, (h, w))
+        fields[1][2, ..., 1] = np.resize(vs, (w, h)).T
+        fields[1][2, ..., 2] = f32(1.0)
+        fields[0][3] = 1.0
+        fields[1][3] = np.stack([*np.mgrid[0:h, 0:w][::-1], np.ones((h, w))], -1).astype(f32)
+        fields[2][2:] = np.array([0.0, 0.0, -1.0], f32)
+    grad = np.stack([np.stack(np.gradient(i.astype(np.float64))[::-1], -1) for i in fields[3]]).astype(f32)
+    pa = np.array([0, 0, 2, 1, 0, 0, 0, 0], np.int32)
+    pb = np.array([1, 1, 3, 0, 0, 0, 0, 0], np.int32)
+    active = np.array([True, False, True, True, False, False, False, False]) & (case != "not_live")
+    return poses, pa, pb, active, (*fields, grad), cam
+
+
+def k6_cases(torch, cache, poses, bc) -> dict:
+    """K6's call shapes on rendered flagship caches (80x60) of an orbit, at
+    poses moved off the orbit by ~0.3 degrees and ~3 mm (seeded), each as
+    (poses, pairs_a, pairs_b, active, caches): the local solve's chunk (its
+    first ``chunk_size`` frames, all 55 pairs live, int64 indices, the
+    chunk's cache) and the global list at the dense cell's chunk 100
+    (``K6_KEYFRAMES`` keyframes in ``max_num_images`` slots, keyframe k
+    holding frame k mod F; ``K6_LIVE`` live pairs (k, k - j), j = 1, 2,
+    ... 5, in order of k, among ``K6_SLOTS`` slots, int32)."""
+    from bundlefusion_tpu_torch.geometry import se3
+
+    dev = cache.depth.device
+    rng = np.random.default_rng(6)
+    f = cache.num_frames
+
+    def moved(T):
+        xi = torch.as_tensor(np.concatenate([rng.normal(scale=0.005, size=3), rng.normal(scale=0.003, size=3)]),
+                             dtype=torch.float32, device=dev)
+        return se3.se3_exp(xi) @ T
+
+    s1 = bc.chunk_size
+    pa, pb = torch.triu_indices(s1, s1, offset=1, device=dev)
+    local = torch.stack([moved(T) for T in poses[:s1]])
+    cases = {"local_55": (local, pa, pb, torch.ones(pa.shape[0], dtype=torch.bool, device=dev),
+                          cache.index(slice(0, s1)))}
+    n = bc.max_num_images
+    frame = torch.arange(K6_KEYFRAMES, device=dev) % f
+    graph = type(cache)(*(torch.zeros((n,) + x.shape[1:], device=dev) for x in
+                          (cache.depth, cache.points, cache.normals, cache.intensity, cache.grad)))
+    for dst, src in zip((graph.depth, graph.points, graph.normals, graph.intensity, graph.grad),
+                        (cache.depth, cache.points, cache.normals, cache.intensity, cache.grad)):
+        dst[:K6_KEYFRAMES] = src[frame]
+    gposes = torch.eye(4, device=dev).repeat(n, 1, 1)
+    gposes[:K6_KEYFRAMES] = torch.stack([moved(poses[int(i)]) for i in frame.tolist()])
+    live = [(k, k - j) for k in range(K6_KEYFRAMES) for j in range(1, 6) if k - j >= 0][:K6_LIVE]
+    ga = torch.zeros(K6_SLOTS, dtype=torch.int32, device=dev)
+    gb = torch.zeros(K6_SLOTS, dtype=torch.int32, device=dev)
+    ga[:len(live)] = torch.tensor([a for a, _ in live], dtype=torch.int32, device=dev)
+    gb[:len(live)] = torch.tensor([b for _, b in live], dtype=torch.int32, device=dev)
+    on = torch.arange(K6_SLOTS, device=dev) < len(live)
+    cases["global_4096"] = (gposes, ga, gb, on, graph)
+    return cases
+
+
+def dense_outputs(blocks) -> list:
+    """``dense_pair_blocks``' six outputs: JtJ, Jtr, the depth and colour
+    counts and squared-residual sums."""
+    JtJ, Jtr, st = blocks
+    return [JtJ, Jtr, st.num_valid_depth, st.num_valid_color, st.sum_sq_depth, st.sum_sq_color]
+
+
+def check_k6(torch, dev, cache, poses, cam):
+    """K6 against its twin at its two call shapes (``k6_cases``) and its
+    edge cases (``pair_edge_inputs`` at 80x60), every output bit-equal;
+    each shape timed eagerly (five calls back to back) and in a CUDA
+    graph, against the twin and the einsum form it replaced, beside its
+    bound (``benchmark/counts/dense.py`` at this call's counts, one GN
+    iteration); the live pairs' largest relative JtJ and Jtr differences
+    from the einsum form, and the pairs whose counts differ from it."""
+    from benchmark.counts import dense as dense_count
+    from bundlefusion_tpu_torch.geometry.camera import CameraModel
+    from bundlefusion_tpu_torch.ops.preprocess import FrameCache
+    from bundlefusion_tpu_torch.solver import residuals
+
+    bc = flagship_config().bundling
+    wd, wc = bc.weight_dense_depth, bc.weight_dense_color
+    out = {}
+    for name, (P, pa, pb, on, caches) in k6_cases(torch, cache, poses, bc).items():
+        args = (P, pa, pb, on, caches, cam, bc, wd, wc)
+        launches = residuals.dense_pair_blocks.launches
+        got = residuals.dense_pair_blocks(*args)
+        want = residuals._dense_pair_blocks_torch(*args)
+        torch.cuda.synchronize()
+        if residuals.dense_pair_blocks.launches != launches + 1:
+            raise AssertionError(f"K6 {name}: {residuals.dense_pair_blocks.launches - launches} launches a call")
+        if not all(torch.equal(x, y) for x, y in zip(dense_outputs(got), dense_outputs(want))):
+            errs = [float((x.double() - y.double()).abs().max()) for x, y in zip(dense_outputs(got),
+                                                                                  dense_outputs(want))]
+            raise AssertionError(f"K6 {name}: not bit-equal to its twin (max |err| by output {errs})")
+        old = einsum_dense_pair_blocks(*args)
+        live = on.nonzero()[:, 0]
+
+        def rel(x, y):
+            d = (x[live] - y[live]).reshape(live.shape[0], -1).norm(dim=-1)
+            return float((d / y[live].reshape(live.shape[0], -1).norm(dim=-1).clamp(min=1e-30)).max())
+
+        flips = int(((got[2].num_valid_depth != old[2].num_valid_depth)
+                     | (got[2].num_valid_color != old[2].num_valid_color)).sum())
+        against = dict(JtJ_rel=rel(got[0], old[0]), Jtr_rel=rel(got[1], old[1]), pairs_whose_counts_differ=flips)
+        del old
+        ms = cuda_ms(torch, lambda: residuals.dense_pair_blocks(*args))
+        gms = graph_ms(torch, lambda: residuals.dense_pair_blocks(*args))
+        plain_ms = cuda_ms(torch, lambda: residuals._dense_pair_blocks_torch(*args), n=3, batch=1)
+        library_ms = cuda_ms(torch, lambda: einsum_dense_pair_blocks(*args), n=3, batch=1)
+        frames = len(set(pa[live].tolist()) | set(pb[live].tolist()))
+        valid = int((caches.depth.reshape(caches.depth.shape[0], -1)[pa[live].long()] > 0).sum())
+        nd, nc = int(got[2].num_valid_depth.sum()), int(got[2].num_valid_color.sum())
+        bound_ms, bound_by = dense_count.least_ms(int(live.shape[0]), frames, valid, nd, nc, 1,
+                                                  caches.depth[0].numel())
+        rec = dict(slots=int(pa.shape[0]), live=int(live.shape[0]), frames=frames, valid_px=valid, assoc_depth=nd,
+                   assoc_color=nc, ms=ms, graph_ms=gms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, einsum_form=against)
+        phase("kernels", f"K6 dense_pairs {name}: {rec['live']} live of {rec['slots']} slots over {frames} "
+              f"keyframes at 80x60, {valid} valid pixels of a, {nd} depth and {nc} colour associations; bit-equal "
+              f"to the twin, one launch a call; kernel {ms:.4f} ms (five eager calls), {gms:.4f} ms in a graph; "
+              f"twin {plain_ms:.4f} ms; einsum form {library_ms:.4f} ms (JtJ within {against['JtJ_rel']:.2g}, "
+              f"Jtr within {against['Jtr_rel']:.2g} relative; pairs whose counts differ {flips}); bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / gms:.4f} in a graph")
+        out[name] = rec
+        del args, got, want, caches
+        torch.cuda.empty_cache()
+    edges = []
+    for case in K6_EDGE_CASES:
+        P, pa, pb, on, fields, ecam = pair_edge_inputs(case, h=bc.cache_height, w=bc.cache_width)
+        args = (*(torch.as_tensor(x, device=dev) for x in (P, pa, pb, on)),
+                FrameCache(*(torch.as_tensor(x, device=dev) for x in fields)), CameraModel(*ecam), bc, wd, wc)
+        got, want = residuals.dense_pair_blocks(*args), residuals._dense_pair_blocks_torch(*args)
+        if not all(torch.equal(x, y) for x, y in zip(dense_outputs(got), dense_outputs(want))):
+            raise AssertionError(f"K6 edge case {case}: not bit-equal to its twin")
+        edges.append(case)
+    phase("kernels", f"K6 edge cases at 80x60 bit for bit: {', '.join(edges)}")
+    g = out["global_4096"]
+    return kernel_entry("dense_pairs", "bundlefusion_tpu_torch/csrc/dense_pairs.cu",
+                        "bundlefusion_tpu/solver/residuals.py:238", 0.0, g["ms"], g["plain_ms"], g["bound_ms"],
+                        g["bound_by"], g["library_ms"], library_ms_is="the einsum form it replaced",
+                        graph_ms=g["graph_ms"], share_of_bound_in_graph=g["bound_ms"] / g["graph_ms"],
+                        edge_cases=edges, cases=out)
+
+
 def check_kernels(torch, T, dev):
-    """Phase 3: K1-K5 against their twins at flagship shapes."""
+    """Phase 3: K1-K6 against their twins at flagship shapes."""
     from bundlefusion_tpu_torch.io import framewire
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
     from bundlefusion_tpu_torch.ops import preprocess as pp
@@ -1209,8 +1469,10 @@ def check_kernels(torch, T, dev):
     k4 = check_k4(torch, dev)
     torch.cuda.empty_cache()
     k5 = check_k5(torch, dev, cache, poses, cache_cam)
+    torch.cuda.empty_cache()
+    k6 = check_k6(torch, dev, cache, poses, cache_cam)
     check_stamps(torch, dev)
-    return [k1, k2, k3, k4, k5]
+    return [k1, k2, k3, k4, k5, k6]
 
 
 def stamped_chunk(s) -> None:
@@ -1427,11 +1689,13 @@ def counted_kernels() -> dict:
     from bundlefusion_tpu_torch.features.sift import sample_window
     from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
     from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
+    from bundlefusion_tpu_torch.solver.residuals import dense_pair_blocks
     from bundlefusion_tpu_torch.solver.system import assemble_system
     from bundlefusion_tpu_torch.utils.timeline import stamp
 
     return {"tsdf_integrate": integrate_blocks, "preprocess": fused_preprocess, "assemble": assemble_system,
-            "sift_sample": sample_window, "dense_verify": dense_verify_sums, "stamp": stamp}
+            "sift_sample": sample_window, "dense_verify": dense_verify_sums, "dense_pairs": dense_pair_blocks,
+            "stamp": stamp}
 
 
 def reset_launches() -> None:
@@ -1453,7 +1717,8 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
     """Kernel launches of a pass of ``chunks`` chunks: one K1 and one K2 per
     chunk; K4 twice (orientation, descriptor) per SIFT octave of each chunk;
     K3 once per GN iteration of the local solve (two prune rounds) and of
-    the global solve (one round, from the second chunk on); K5 twice per
+    the global solve (one round, from the second chunk on); K6 once per GN
+    iteration of each solve whose dense term is on; K5 twice per
     chunk (the filter, the opt-verify) and once per global match (from the
     second chunk on); the timeline's stamps twice per stage the chunk runs
     (``global_solve`` from the second chunk on, ``gc`` every
@@ -1470,21 +1735,23 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
     dense = 2 * bc.global_gn_iters if bc.use_dense_global else 0  # global_dense, each GN iteration
     return {"tsdf_integrate": chunks, "preprocess": chunks, "sift_sample": 2 * octaves * chunks,
             "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters,
+            "dense_pairs": chunks * 2 * bc.local_gn_iters * bc.use_dense_local
+            + (chunks - 1) * bc.global_gn_iters * bc.use_dense_global,
             "dense_verify": 3 * chunks - 1, "stamp": 16 * chunks + (2 + dense) * (chunks - 1) + 2 * gcs}
 
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
     """K1, K2, K4, K5 and the stamps as ``expected_launches`` counts them;
-    K3 at least once per solve iteration counted there (a relocalization or
-    revalidation solves more)."""
+    K3 and K6 at least once per solve iteration counted there (a
+    relocalization or revalidation solves more)."""
     exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample", "dense_verify", "stamp")}
-    if exact != {k: want[k] for k in exact} or launches["assemble"] < want["assemble"]:
-        raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3 at least)")
+    if exact != {k: want[k] for k in exact} or any(launches[k] < want[k] for k in ("assemble", "dense_pairs")):
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3 and K6 at least)")
 
 
 def record_launches(kernels_out, path: str, launches: dict[str, int]) -> None:
     """Attach a path's launch counts to the kernels' entries; every kernel
-    of the path (K1-K5; the stamps are counted where the timeline is) must
+    of the path (K1-K6; the stamps are counted where the timeline is) must
     have launched."""
     for k in kernels_out:
         k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
@@ -2864,7 +3131,8 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the port's kernels by the name of their __global__ function
 OUR_KERNELS = {"tsdf_fuse_kernel": "tsdf_integrate", "preprocess_kernel": "preprocess",
                "assemble_flags_kernel": "assemble pass 1", "assemble_rows_kernel": "assemble pass 2",
-               "sift_sample_kernel": "sift_sample", "dense_verify_kernel": "dense_verify", "stamp_kernel": "stamp"}
+               "sift_sample_kernel": "sift_sample", "dense_verify_kernel": "dense_verify", "dense_pairs_kernel": "dense_pairs",
+               "dense_pairs_finish_kernel": "dense_pairs finish", "stamp_kernel": "stamp"}
 # the host's calls that put work on the device: a kernel launch, a whole
 # CUDA graph's launch, an asynchronous copy or fill
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",

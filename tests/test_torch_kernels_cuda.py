@@ -24,10 +24,11 @@ from bundlefusion_tpu_torch.geometry.camera import CameraModel
 from bundlefusion_tpu_torch.io.framewire import frame_to_wire2
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.ops import preprocess as pp
-from bundlefusion_tpu_torch.solver import system
+from bundlefusion_tpu_torch.solver import residuals, system
 from bundlefusion_tpu_torch.utils import graphs, timeline
-from chip_smoke import (K3_EDGE_CASES, K5_EDGE_CASES, assembly_edge_inputs, assembly_inputs, k5_cases,
-                        program_outputs_survive, sift_inputs, verify_edge_inputs)
+from chip_smoke import (K3_EDGE_CASES, K5_EDGE_CASES, K6_EDGE_CASES, assembly_edge_inputs, assembly_inputs,
+                        dense_outputs, k5_cases, k6_cases, pair_edge_inputs, program_outputs_survive, sift_inputs,
+                        verify_edge_inputs)
 
 pytestmark = pytest.mark.cuda
 APP = tiny_test_config().app
@@ -310,6 +311,80 @@ def test_k5_replays_in_a_graph(dev, verify_cache):
     assert prog.replays == 2 and filters.dense_verify_sums.launches == launches + 2
 
 
+@pytest.fixture(scope="module")
+def pair_inputs(dev, verify_cache):
+    """K6's call shapes (``k6_cases``) on the rendered 80x60 caches."""
+    cache, poses, cam = verify_cache
+    return k6_cases(torch, cache, poses, BC), cam
+
+
+def _k6_args(cases, cam, case):
+    return (*cases[case], cam, BC, BC.weight_dense_depth, BC.weight_dense_color)
+
+
+@pytest.mark.parametrize("case", ["local_55", "global_4096"])
+def test_k6_kernel_matches_twin(dev, pair_inputs, case):
+    """K6 at its call shapes (the local solve's 55 pairs, all live; the
+    global list's 4,096 slots, 425 live among 101 keyframes): JtJ, Jtr,
+    both counts and both squared sums bit-equal to the twin, zeros in the
+    slots not live, one launch a call."""
+    args = _k6_args(*pair_inputs, case)
+    launches = residuals.dense_pair_blocks.launches
+    got = residuals.dense_pair_blocks(*args)
+    want = residuals._dense_pair_blocks_torch(*args)
+    torch.cuda.synchronize()
+    assert residuals.dense_pair_blocks.launches == launches + 1
+    on = args[3]
+    assert int(got[2].num_valid_color[on].min()) > 0 and not got[0][~on].any()
+    for x, y in zip(dense_outputs(got), dense_outputs(want)):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+
+
+@pytest.mark.parametrize("case", K6_EDGE_CASES)
+@pytest.mark.parametrize("hw", [(24, 32), (60, 80)], ids=["32x24", "80x60"])
+def test_k6_edge_cases(dev, case, hw):
+    """K6's edge cases (``pair_edge_inputs``): no slot live, a without
+    depth, projections off the image and behind it, NaN coordinates, every
+    colour test failing, points on and just past the image's edges; every
+    output bit-equal to the twin, slots not live exactly zero."""
+    P, pa, pb, on, fields, cam = pair_edge_inputs(case, h=hw[0], w=hw[1])
+    args = (*(torch.as_tensor(x, device=dev) for x in (P, pa, pb, on)),
+            pp.FrameCache(*(torch.as_tensor(x, device=dev) for x in fields)), CameraModel(*cam), BC,
+            BC.weight_dense_depth, BC.weight_dense_color)
+    launches = residuals.dense_pair_blocks.launches
+    got = residuals.dense_pair_blocks(*args)
+    want = residuals._dense_pair_blocks_torch(*args)
+    assert residuals.dense_pair_blocks.launches == launches + 1
+    for x, y in zip(dense_outputs(got), dense_outputs(want)):
+        np.testing.assert_array_equal(x.cpu().numpy(), y.cpu().numpy())
+    off = ~args[3]
+    assert all(not bool(x[off].any()) for x in dense_outputs(got))
+    if case == "colour_fails":
+        assert int(got[2].num_valid_depth[2]) > 0 and int(got[2].num_valid_color[2]) == 0
+    if case == "no_valid_depth":
+        assert int(got[2].num_valid_depth[2]) == 0 and not got[0][2].any()
+
+
+def test_k6_replays_in_a_graph(dev, pair_inputs):
+    """Captured in a CUDA graph, K6 replays to the twin's blocks, each
+    replay one launch."""
+    args = _k6_args(*pair_inputs, "global_4096")
+    want = dense_outputs(residuals._dense_pair_blocks_torch(*args))
+    exe = graphs.Executable(dev, None)
+    prog = exe.program("dense_pairs", residuals.dense_pair_blocks)
+    exe.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(exe.stream):
+        out = prog(*args)  # eager, then captured
+        launches = residuals.dense_pair_blocks.launches
+        for _ in range(2):
+            for x in dense_outputs(out):
+                x.zero_()
+            prog(*args)
+            torch.cuda.current_stream().synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(dense_outputs(out), want))
+    assert prog.replays == 2 and residuals.dense_pair_blocks.launches == launches + 2
+
+
 def test_stamps_replay_in_a_graph(dev):
     """A captured stamp reads its row on the device: each replay stamps the
     row the chunk tensor holds then (an offset of -1 after the program
@@ -411,3 +486,10 @@ def test_wrappers_reject_bad_inputs(dev, frames):
     with pytest.raises(ValueError):
         filters.dense_verify_sums(a, pp.FrameCache(*(f[:2] for f in (b.depth, b.points, b.normals, b.intensity,
                                                                       b.grad))), (T,), CameraModel(*ecam), BC)
+    P, pa, pb, on, fields, ecam = pair_edge_inputs("not_live")
+    P, pa, pb, on = (torch.as_tensor(x, device=dev) for x in (P, pa, pb, on))
+    cache = pp.FrameCache(*(torch.as_tensor(x, device=dev) for x in fields))
+    for bad in ((P.double(), pa, pb, on, cache), (P, pa.float(), pb, on, cache), (P, pa, pb.long(), on, cache),
+                (P, pa, pb, on.int(), cache), (P, pa, pb, on, dataclasses.replace(cache, grad=cache.grad[..., :1]))):
+        with pytest.raises(ValueError):
+            residuals.dense_pair_blocks(*bad, CameraModel(*ecam), BC, 0.5, 0.1)
