@@ -144,7 +144,7 @@ def expected_replays(chunks: int, cfg) -> dict[str, int]:
     pass does not reach), global_solve every later chunk's, gc every
     ``gc_every_chunks`` chunks."""
     from .bundle.global_graph import graph_tiers
-    from .bundle.pipeline import graph_step_program
+    from .bundle.step import graph_step_program
 
     gc_every, capacity = cfg.app.gc_every_chunks, cfg.bundling.max_num_images
     steps = dict.fromkeys((f"graph_step@{t}" for t in graph_tiers(capacity)), 0)

@@ -18,6 +18,7 @@ code.
 
 from __future__ import annotations
 
+import operator
 import os
 import pickle
 
@@ -30,26 +31,27 @@ from ..geometry.camera import CameraModel
 from ..interop import state_from_numpy, state_to_numpy
 from ..utils.tensor_ops import copy_into
 from .global_graph import GlobalGraph
-from .pipeline import BundleFusion, DeviceCtrl
+from .pipeline import BundleFusion
+from .step import DeviceCtrl
 from .trajectory import TrajectoryState
 
 # device state: fields of the pipeline's FusionState
 _STATES = {"graph": GlobalGraph, "traj": TrajectoryState, "ctrl": DeviceCtrl}
 _DENSE = ("ring_frame", "local_trajs", "chunk_valid", "runlog_rows", "blocks_updated", "gc_freed_total")
-# host state: pipeline attribute -> key in the file (the JAX package's keys)
+# host state: pipeline attribute ("_ingest.": its ingest's) -> key in the file (the JAX package's keys)
 _HOST_FIELDS = {
     "num_frames": "num_frames",
     "num_keyframes": "num_keyframes",
     "chunk_count": "chunk_count",
-    "_next_fid": "next_fid",
+    "_ingest.next_fid": "next_fid",
     "anchor": "anchor",
-    "_frame_store": "frame_store",
+    "_ingest.frame_store": "frame_store",
     "gn_iters_executed": "gn_iters_executed",
     "_reloc_seen": "reloc_seen",
     "_streaming_on": "streaming_on",
     "_ring_uploads": "ring_uploads",
     "block_store": "block_store",
-    "_pending": "pending",
+    "_ingest.pending": "pending",
 }
 
 
@@ -75,7 +77,7 @@ def save_checkpoint(bf: BundleFusion, path: str) -> None:
     dev["ring"] = {"slots": ring.cpu().numpy(), "d16": _rows(st.hist_d16, ring), "c8": _rows(st.hist_c8, ring)}
     n = bf.num_frames
     dev["upd"] = {"masks": st.upd_masks[:n].cpu().numpy(), "keys": st.upd_keys[:n].cpu().numpy()}
-    host = {key: getattr(bf, name) for name, key in _HOST_FIELDS.items()}
+    host = {key: operator.attrgetter(name)(bf) for name, key in _HOST_FIELDS.items()}
     host["config_json"] = bf.config.to_json()
     host["camera"] = tuple(bf.cam)
     with open(path, "wb") as f:
@@ -116,5 +118,6 @@ def load_checkpoint(path: str, *, device: torch.device | str = "cuda") -> Bundle
         n = host["num_frames"]
         st.upd_masks[:n], st.upd_keys[:n] = put(dev["upd"]["masks"]), put(dev["upd"]["keys"])
     for name, key in _HOST_FIELDS.items():
-        setattr(bf, name, host[key])
+        owner, _, attr = name.rpartition(".")
+        setattr(operator.attrgetter(owner)(bf) if owner else bf, attr, host[key])
     return bf

@@ -2,30 +2,17 @@
 (port of ``bundlefusion_tpu.parallel.spmd_pipeline``).
 
 :func:`run_sequences_sharded` replays D sequences over a D-shard mesh in
-lockstep: each chunk round runs, for every shard on its own device, the
-same stages as the serial pipeline (``bundle/pipeline.py``) — the chunk
-program (preprocess with K2, SIFT, matching, filters, local BA), the
-keyframe-graph step (add, match, relocalize, the tracking-lost state
-machine), global BA, trajectory publish, the plan + ring + de/re-integrate
-TSDF step (K1) and the periodic GC — on that shard's sequence, with no
-traffic between shards.
-
-Execution, as in the JAX package, where each stage is one
-``jax.jit(shard_map(...))`` program per chunk round: every shard checks out
-an executable of its own (``utils/graphs.py``; a cache of this module's,
-keyed by configuration, device, camera and the v1 wire) that holds the
-shard's ``FusionState``, persistent step inputs that the ``plan_fuse``
-stage advances on the device, the graph step's carry and static wire
-buffers (depth [cf, H, W] int16, colour [cf, H, W, 3] uint8). Its stages
-are the serial pipeline's programs (``chunk_local``, ``graph_step_first``,
-``graph_step@T`` for each slot tier T, ``global_solve``, ``publish``,
-``plan_fuse``, ``gc``): on a card each is captured as a CUDA graph at its
-first call and replayed after (the graph step's tiers all at round 1), on
-the shard's own stream, so two shards on one card may overlap. A run
-built under ``graphs.disable_graphs()`` runs them eagerly on the card; on
-the CPU they call their functions. Each shard uploads its chunk from a warm
-pinned 3-deep rotation straight into its static wire, after waiting on the
-event recorded behind the buffer's last copy (a host wait, no readback).
+lockstep, with no traffic between shards: each chunk round runs, for every
+shard on its own device and stream, the serial pipeline's chunk step
+(``bundle/step.py``: ``step.ChunkStep``, without stamps, with the plain
+global solve) on that shard's sequence, as the JAX package runs each stage
+as one ``jax.jit(shard_map(...))`` program per round. Every shard checks out
+an executable of its own from the chunk step's cache, keyed by
+configuration, device, camera and the v1 wire (its static wire buffers:
+depth [cf, H, W] int16, colour [cf, H, W, 3] uint8), and uploads its chunk
+from a warm pinned 3-deep rotation (``ingest.staging_checkout``) straight
+into that wire, after waiting on the event recorded behind the buffer's
+last copy (a host wait, no readback).
 
 Frames travel as the v1 wire (``framewire.frame_to_wire``: uint16 mm depth
 and full-resolution uint8 RGB), so the chunk program takes its RGB branch
@@ -50,31 +37,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..bundle import global_graph
-from ..bundle.pipeline import (
-    _STAGING_DEPTH,
-    FusionState,
-    _chunk_local,
-    _gc,
-    _plan_fuse_step,
-    _publish_all,
-    _staging_checkout,
-    checkout_step,
-    make_fusion_state,
-    run_graph_step,
-    stream_ctx,
-)
+from ..bundle import global_graph, ingest, step as step_mod
 from ..config import Config
 from ..fusion import blocks, marching_cubes
 from ..geometry.camera import CameraModel
 from ..io import framewire
 from ..utils import graphs
 from .mesh import Mesh
-
-# the shards' executables by (configuration, device, camera, wire): the v1
-# wire and its full-resolution colour ring make them another step than the
-# serial pipeline's
-_EXECUTABLES = graphs.ExecutableCache()
 
 
 class ShardedOutputs(NamedTuple):
@@ -131,54 +100,54 @@ class ShardedRun:
         cf, h, w = bc.chunk_size, cam.height, cam.width
         self.tables = _Tables()
         self.exes: list[graphs.Executable] = []
-        self._routes = [graphs.route_for(dev) for dev in mesh.devices]
+        self._steps: list[step_mod.ChunkStep] = []
         for i, dev in enumerate(mesh.devices):
             def fresh(i=i, dev=dev):
-                return make_fusion_state(cfg, cam, (h, w), anchors[i], dev)
+                return step_mod.make_fusion_state(cfg, cam, (h, w), anchors[i], dev)
 
             def wire(dev=dev):
                 return (torch.zeros((cf, h, w), dtype=torch.int16, device=dev),
                         torch.zeros((cf, h, w, 3), dtype=torch.uint8, device=dev))
 
             key = (cfg.to_json(), str(dev), tuple(cam), "v1 wire")
-            exe = checkout_step(_EXECUTABLES, self.tables, key, dev, fresh, anchors[i], wire, bc.submap_size, cf)
+            exe = step_mod.checkout_step(self.tables, key, dev, fresh, anchors[i], wire, bc.submap_size, cf)
             self.exes.append(exe)
-            self.tables.append(self.exes[-1].state.fusion.table)
-        self.shards: list[FusionState] = [exe.state.fusion for exe in self.exes]
-        self._counters_at_start = [exe.counters() for exe in self.exes]
+            self.tables.append(exe.state.fusion.table)
+            # integration at the input resolution, from the wire's depth and RGB
+            self._steps.append(step_mod.ChunkStep(
+                exe, cfg, cam, cam, solve=(global_graph.global_solve, exe.state.fusion.graph, self.cache_cam, bc),
+                route=graphs.route_for(dev)))
+        self.shards: list[step_mod.FusionState] = [exe.state.fusion for exe in self.exes]
         # per shard, a warm 3-deep rotation of host buffers (pinned on a card)
         spec = (((cf, h, w), np.uint16), ((cf, h, w, 3), np.uint8))
-        self._staging = [_staging_checkout(self, spec, pinned=dev.type == "cuda") for dev in mesh.devices]
-        self._next_round = 0
+        self._staging = [ingest.staging_checkout(self, spec, pinned=dev.type == "cuda") for dev in mesh.devices]
 
     @property
     def graph_stats(self) -> list[dict[str, dict]]:
         """Per shard, per stage (after this run ran it once): ``graph``
         (captured), ``replays`` by this run, ``captured`` (by this run),
         ``capture_s`` and ``route`` ("graph", or why it runs eagerly)."""
-        return [exe.stats(start, lambda name, r=route: r)
-                for exe, start, route in zip(self.exes, self._counters_at_start, self._routes)]
+        return [s.stats() for s in self._steps]
 
     def step(self, c: int) -> None:
         """Chunk round ``c`` (rounds run in order from 0): every shard
         consumes frames [c*S, c*S + S], on its own stream."""
-        if c != self._next_round:
-            raise ValueError(f"chunk round {c} out of order: the shards' step inputs hold round {self._next_round}")
+        if c != self._steps[0].at:
+            raise ValueError(f"chunk round {c} out of order: the shards' step inputs hold round {self._steps[0].at}")
         bc = self.config.bundling
         first, cf = c * bc.submap_size, bc.chunk_size
         for i, (d16, c8) in enumerate(self.wires):
             exe = self.exes[i]
-            with stream_ctx(exe.device, exe.stream):
+            with graphs.stream_ctx(exe.device, exe.stream):
                 self._upload(i, c, d16[first : first + cf], c8[first : first + cf])
-                self._shard_chunk(i, c)
-        self._next_round += 1
+                self._steps[i](c)
 
     def _upload(self, i: int, c: int, d16: np.ndarray, c8: np.ndarray) -> None:
         """Shard ``i``'s chunk into its static wire: one warm host buffer of
         the rotation, refilled once its last copy is done, then two copies
         (non-blocking from pinned memory on a card) in the shard's stream
         order."""
-        buf = self._staging[i][c % _STAGING_DEPTH]
+        buf = self._staging[i][c % ingest.STAGING_DEPTH]
         if buf.copied is not None:
             buf.copied.synchronize()  # an event of the shard's stream: no data comes back
         buf.arrays[0][:] = d16
@@ -190,31 +159,6 @@ class ShardedRun:
         if self.exes[i].stream is not None:
             buf.copied = torch.cuda.Event()
             buf.copied.record()
-
-    def _shard_chunk(self, i: int, c: int) -> None:
-        """Shard ``i``'s chunk step: the serial pipeline's stages, each
-        through the shard executable's program of its name."""
-        bc, ac = self.config.bundling, self.config.app
-        exe, graphed = self.exes[i], self._routes[i] == "graph"
-        st, step, wire, carry = exe.state.fusion, exe.state.step, exe.state.wire, exe.state.carry
-        S, cf = bc.submap_size, bc.chunk_size
-
-        def run(name, fn, *args):
-            return exe.program(name, fn)(*args, graphed=graphed)
-
-        res = run("chunk_local", _chunk_local, wire, self.cam, self.cache_cam, bc, ac)
-        first = c == 0
-        run_graph_step(exe, lambda fn: fn, c, bc.max_num_images, (st, step, res, self.cache_cam, bc, first, carry),
-                       graphed)
-        if not first:
-            run("global_solve", global_graph.global_solve, st.graph, self.cache_cam, bc)
-        run("publish", _publish_all, st, S, cf)
-        # a fixed new-frame width: the overlap frame (already integrated) is
-        # a masked row after chunk 0
-        run("plan_fuse", _plan_fuse_step, st, ac, self.cam, step, carry, wire[0], wire[1],
-            ac.max_reintegrations_per_frame * S, S)
-        if ac.gc_every_chunks and (c + 1) % ac.gc_every_chunks == 0:
-            run("gc", _gc, st)
 
     def outputs(self) -> ShardedOutputs:
         """The run's first device reads: poses, validity and runlogs, each

@@ -95,6 +95,17 @@ def route_for(device: torch.device) -> str:
     return "graph" if graphs_enabled() else "eager: disable_graphs()"
 
 
+def stream_ctx(device: torch.device, stream):
+    """``device`` and ``stream`` for the calling thread (in PyTorch both
+    belong to each thread); nothing on the CPU."""
+    if stream is None:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(device))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
 def _leaves(obj, out: list) -> list:
     """The tensors and other values of a nest of dataclasses, tuples and
     lists, in order."""

@@ -1477,10 +1477,10 @@ def check_kernels(torch, T, dev):
 
 def stamped_chunk(s) -> None:
     """One chunk's device stamps as the pipeline's stage programs make them
-    (``pipeline._stamped``, with its row offsets): each stage's begin and
+    (``step._stamped``, with its row offsets): each stage's begin and
     end, ``chunk_local``'s three parts inside it, and ``plan_fuse``
     advancing the chunk tensor before its end, as ``advance_step`` does."""
-    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.bundle import step
     from bundlefusion_tpu_torch.utils import timeline
 
     def parts(s):
@@ -1490,7 +1490,7 @@ def stamped_chunk(s) -> None:
 
     work = {"chunk_local": parts, "plan_fuse": lambda s: s.row.add_(1)}
     for span in timeline.STAGES:
-        pipe._stamped(work.get(span, lambda s: None), span, s, s)
+        step._stamped(work.get(span, lambda s: None), span, s, s)
 
 
 def stamp_run(torch, dev, rows: int, starts: list[int], stream=None, copy=None, program=None) -> dict:
@@ -1800,14 +1800,14 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
     worker, and that "error" mode's exception on that worker comes back
     through its future."""
     from bundlefusion_tpu_torch import bench
-    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.bundle import ingest
     from bundlefusion_tpu_torch.bundle.pipeline import BundleFusion
 
     def readback():
         return torch.ones(1, device=dev).sum().item()
 
     control = sync_sites(torch, readback)
-    worker = sync_sites(torch, lambda: pipe._executor("dispatch").submit(readback).result())
+    worker = sync_sites(torch, lambda: ingest._executor("dispatch").submit(readback).result())
     if len(control) != 1 or len(worker) != 1:
         raise AssertionError(f"the sync counter missed a deliberate sync: caller {control}, worker {worker}")
     # the pipeline's backpressure and staging waits are event waits: the
@@ -1820,7 +1820,7 @@ def count_syncs(torch, T, seq, cfg, dev) -> None:
         raise AssertionError(f"the sync counter reports a CUDA event wait: {event_wait}")
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pipe._executor("dispatch").submit(readback).result()
+        ingest._executor("dispatch").submit(readback).result()
         raised = None
     except RuntimeError as e:
         raised = str(e).splitlines()[0]
@@ -2219,7 +2219,7 @@ def run_app(torch, T, dev, kernels_out) -> None:
           f"blocks restored; {keep_or_drop(ck)}")
     if bf.chunk_count != chunks or bf.num_frames != s * chunks + 1:
         problems.append(f"checkpoint holds {bf.chunk_count} chunks / {bf.num_frames} frames, not {chunks}")
-    for i in range(bf._next_fid, n):  # the restored pipeline keeps consuming frames
+    for i in range(bf._ingest.next_fid, n):  # the restored pipeline keeps consuming frames
         bf.push_frame(seq.depth[i], seq.color[i])
     bf.flush()
     out = bf.outputs()
@@ -2549,7 +2549,7 @@ def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
     flagship pass with async ingest, with BF_SYNC_INGEST=1 and with
     profile=True (equal digests); the filtered-depth pass on the native
     bilateral; the two developer tools."""
-    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.bundle import ingest
     from bundlefusion_tpu_torch.eval.ate import ate_rmse
     from bundlefusion_tpu_torch.io import framewire
     from bundlefusion_tpu_torch.tools import offline_matching, profile_stages
@@ -2607,7 +2607,7 @@ def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
         record_launches(kernels_out, f"ingest_{mode.split(',')[0]}", launches)
         out = bf.outputs()
         runs[mode] = dict(poses=out.poses, digests=state_digests(torch, bf), upload_bytes=bf.upload_bytes,
-                          report=bf.timing.report(), wire=(bf.chunk_frames, bf.S, bf._wire_dims))
+                          report=bf.timing.report(), wire=(bf.chunk_frames, bf.S, bf._ingest.wire_dims))
         phase("ingest", f"{mode} stage table:\n" + runs[mode]["report"])
         phase("ingest", f"{mode}: {n / dt:.3f} fps ({dt:.3f} s push_frame -> flush; the caller's thread spent "
               f"{sum(push):.3f} s in push_frame, max {1e3 * max(push):.2f} ms in one call); upload bytes first "
@@ -2616,14 +2616,14 @@ def run_ingest(torch, T, dev, kernels_out, seq, cfg, ref) -> None:
               + ("" if sites is None else f"; readbacks {len(sites)} {by_site(sites)}"))
         if sites:
             raise AssertionError(f"readbacks in the async steady state: {by_site(sites)}")
-        if bf._async_ingest != mode.startswith("async"):
-            raise AssertionError(f"{mode}: async ingest is {bf._async_ingest}")
+        if bf._ingest.async_ingest != mode.startswith("async"):
+            raise AssertionError(f"{mode}: async ingest is {bf._ingest.async_ingest}")
         if launches["tsdf_integrate"] != len(bf.upload_bytes) or launches["preprocess"] != len(bf.upload_bytes):
             raise AssertionError(f"{mode}: expected one K1 and one K2 launch per chunk: {launches}")
         del bf, out
     a = runs["async"]
     cf, sub, dims = a["wire"]
-    want = [pipe._wire_nbytes(cf, *dims), pipe._wire_nbytes(sub, *dims)]
+    want = [ingest.wire_nbytes(cf, *dims), ingest.wire_nbytes(sub, *dims)]
     phase("ingest", f"upload bytes predicted first {want[0]:,} / steady {want[1]:,} (12-bit depth {dims[-1]})")
     if a["upload_bytes"][0] != want[0] or set(a["upload_bytes"][1:]) != {want[1]}:
         raise AssertionError(f"upload bytes {a['upload_bytes']} against {want}")
@@ -2905,7 +2905,7 @@ def run_dense_reference(torch, T, dev) -> None:
     from benchmark import drive, spec
     from benchmark.reference import dense_ba as ref
     from bundlefusion_tpu_torch import bench
-    from bundlefusion_tpu_torch.bundle.pipeline import DENSE_FIELDS
+    from bundlefusion_tpu_torch.bundle.step import DENSE_FIELDS
     from bundlefusion_tpu_torch.ops.preprocess import FrameCache
     from bundlefusion_tpu_torch.solver import gn, residuals
 
@@ -2946,13 +2946,13 @@ def run_dense_reference(torch, T, dev) -> None:
     try:
         bf = drive.pipeline_factory(scan, cfg, dev)()
         snap = {}
-        run_stage = bf._run
+        run_stage = bf._step.run
 
         def run(name, fn, *args):
             """The stage; at chunk DENSE_CHUNK global_solve's inputs copied
             on the pipeline's stream before it runs and the probe after it
             (device copies: no read)."""
-            at = name == "global_solve" and bf.num_keyframes - 1 == DENSE_CHUNK
+            at = name == "global_solve" and bf.chunk_count == DENSE_CHUNK
             if at:
                 g = bf.state.graph
                 snap.update(poses=g.poses.clone(), valid=g.valid.clone(), a=g.dense_pairs_a.clone(),
@@ -2964,7 +2964,7 @@ def run_dense_reference(torch, T, dev) -> None:
                 snap["timed"] = tuple(x.clone() for x in probe)
             return out
 
-        bf._run = run
+        bf._step.run = run
         # chunks 0 and 1 first: each program's eager run and capture (and
         # their constants' uploads) lie there; the steady state is what follows
         warm = 2 * bc.submap_size + 1
@@ -2980,7 +2980,7 @@ def run_dense_reference(torch, T, dev) -> None:
         t0 = time.perf_counter()
         sites = sync_sites(torch, steady)
         dt = time.perf_counter() - t0
-        del bf._run  # no cycle through the hook
+        del bf._step.run  # no cycle through the hook
         bf.outputs()
         stats = bf.graph_stats["global_solve"]
     finally:
@@ -3352,7 +3352,7 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     bundlefusion_tpu_torch.bench``, at bench.py's two sizes in
     subprocesses."""
     from bundlefusion_tpu_torch import bench
-    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.bundle import step
 
     smi = bench.device_line(dev)
     cfg = bench.bench_config(*FULL, 262144)
@@ -3392,7 +3392,7 @@ def run_bench(torch, T, dev, kernels_out, seq) -> None:
     for stage, rows in full["top_by_stage"].items():
         phase("bench", f"  {stage}'s longest device operations: {json.dumps(rows)}")
 
-    pipe._EXECUTABLES.clear()  # the card's memory is the subprocesses'
+    step.EXECUTABLES.clear()  # the card's memory is the subprocesses'
     torch.cuda.empty_cache()
     runs = {name: bench_subprocess(name, env, smi) for name, env in BENCH_RUNS}
     fps = runs["flagship"]["result"]["value"]
@@ -3532,13 +3532,13 @@ def check_tier_scan(graphed: dict, eager: dict, cfg, chunks: int) -> dict:
     Returns the tiers' capture seconds and graph_step device ms (median) by
     tier."""
     from bundlefusion_tpu_torch import bench
-    from bundlefusion_tpu_torch.bundle import global_graph, pipeline as pipe
+    from bundlefusion_tpu_torch.bundle import global_graph, step
 
     cap = cfg.bundling.max_num_images
     tiers = [f"graph_step@{t}" for t in global_graph.graph_tiers(cap)]
-    want_slots = [pipe.graph_step_program(c, cap)[1] for c in range(chunks)]
+    want_slots = [step.graph_step_program(c, cap)[1] for c in range(chunks)]
     uses = {k: n for k, n in bench.expected_replays(chunks, cfg).items() if k in tiers}
-    first = pipe.graph_step_program(1, cap)[0]
+    first = step.graph_step_program(1, cap)[0]
     stats = graphed["stats"]
     if graphed["ready"] != dict.fromkeys(tiers, True) or not all(stats.get(k, {}).get("captured") for k in tiers):
         raise AssertionError(f"tiers not all captured at the first steady chunk: {graphed['ready']}, {stats}")
@@ -3580,11 +3580,11 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
     captures nothing; one K1 and one K2 launch per chunk, counted through
     replays; 0 readbacks; ATE <= 0.5 cm, every chunk valid."""
     from bundlefusion_tpu_torch import bench
-    from bundlefusion_tpu_torch.bundle import pipeline as pipe
+    from bundlefusion_tpu_torch.bundle import step
     from bundlefusion_tpu_torch.utils import graphs
 
     smi = bench.device_line(dev)
-    pipe._EXECUTABLES.clear()  # a fresh executable: this phase's first pass captures
+    step.EXECUTABLES.clear()  # a fresh executable: this phase's first pass captures
     torch.cuda.empty_cache()
     first = graph_pass(torch, seq, cfg, dev, "graphed", watch=True)
     passes = [first, graph_pass(torch, seq, cfg, dev, "eager")]
@@ -3641,7 +3641,7 @@ def run_graphs(torch, T, dev, kernels_out, seq, cfg) -> None:
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 
     tseq = generate_sequence(TIER_CHUNKS * cfg.bundling.submap_size + 1, *FULL, radius=0.5, device=dev)
-    pipe._EXECUTABLES.clear()
+    step.EXECUTABLES.clear()
     torch.cuda.empty_cache()
     tg = tier_scan(torch, tseq, cfg, dev, "graphed")
     te = tier_scan(torch, tseq, cfg, dev, "eager")
@@ -3680,8 +3680,7 @@ def main() -> int:
         return 1
     import bundlefusion_tpu_torch as T
     from bundlefusion_tpu_torch import bench, kernels
-    from bundlefusion_tpu_torch.bundle import pipeline as pipe
-    from bundlefusion_tpu_torch.parallel import spmd_pipeline as spmd
+    from bundlefusion_tpu_torch.bundle import step
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -3696,8 +3695,7 @@ def main() -> int:
         # each phase starts without the idle executables (graphs and state)
         # of the phases before it, but for phase 5, which replays phase 4's
         if name != "syncs":
-            pipe._EXECUTABLES.clear()
-            spmd._EXECUTABLES.clear()
+            step.EXECUTABLES.clear()
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3705,8 +3703,7 @@ def main() -> int:
         gc.collect()
         phase(name, f"phase {time.perf_counter() - t0:.1f} s; card memory after it: allocated "
               f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB, reserved {torch.cuda.memory_reserved() / 2**30:.3f} "
-              f"GiB, {len(pipe._EXECUTABLES._free)} + {len(spmd._EXECUTABLES._free)} idle executables (serial + "
-              f"shards)")
+              f"GiB, {len(step.EXECUTABLES._free)} idle executables")
         return out
 
     kern = timed("kernels", check_kernels, torch, T, dev)

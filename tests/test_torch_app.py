@@ -138,7 +138,7 @@ def test_app_previews_and_checkpoint(port_out):
     previews = sorted(p.name for p in port_out.glob("preview_*"))
     assert previews and previews[0].startswith("preview_00005.")
     bf = load_checkpoint(str(port_out / "checkpoint.pkl"), device="cpu")
-    assert bf.chunk_count >= 2 and bf.num_frames >= 9 and len(bf._frame_store) == bf._next_fid
+    assert bf.chunk_count >= 2 and bf.num_frames >= 9 and len(bf._ingest.frame_store) == bf._ingest.next_fid
 
 
 def test_checkpoint_restores_the_state_and_keeps_consuming_frames(tmp_path, seq, port_out):
@@ -166,7 +166,7 @@ def test_checkpoint_restores_the_state_and_keeps_consuming_frames(tmp_path, seq,
         assert torch.equal(x[: sa.table.capacity], y[: sa.table.capacity]), name
     for name in ("hist_d16", "hist_c8", "upd_masks", "upd_keys"):
         assert torch.equal(getattr(sa, name)[:-1], getattr(sb, name)[:-1]), name
-    assert (b.chunk_count, b.num_frames, b._next_fid, len(b._pending)) == (a.chunk_count, a.num_frames, 7, 3)
+    assert (b.chunk_count, b.num_frames, b._ingest.next_fid, len(b._ingest.pending)) == (a.chunk_count, a.num_frames, 7, 3)
     for i in range(7, N):
         b.push_frame(seq.depth[i], seq.color[i])
     b.flush()

@@ -24,6 +24,7 @@ import torch
 
 from bundlefusion_tpu_torch.bundle import global_graph as gg
 from bundlefusion_tpu_torch.bundle import pipeline as tpipe
+from bundlefusion_tpu_torch.bundle import step as tstep
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.solver import residuals
@@ -56,7 +57,7 @@ def test_tier_of_a_chunk(capacity, chunk, tier):
     """The smallest tier that holds chunk ``chunk``'s ``chunk + 1``
     keyframes; at chunks >= 1 the graph step's program is named by it."""
     assert gg.graph_tier(chunk, capacity) == tier
-    name, slots = tpipe.graph_step_program(chunk, capacity)
+    name, slots = tstep.graph_step_program(chunk, capacity)
     if chunk == 0:
         assert (name, slots) == ("graph_step_first", 0)
     else:

@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from bundlefusion_tpu_torch.bundle import pipeline as tpipe
+from bundlefusion_tpu_torch.bundle import step as tstep
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.utils import graphs
 from torch_oplog import OpLog, assert_same_ops
@@ -77,9 +78,9 @@ def _state_tensors(bf) -> dict:
                 walk(f"{prefix}[{i}]", x)
 
     walk("state", bf.state)
-    walk("step", bf._step)
-    walk("wire", bf._wire)
-    walk("carry", bf._carry)
+    walk("step", bf._exe.state.step)
+    walk("wire", bf._exe.state.wire)
+    walk("carry", bf._exe.state.carry)
     return out
 
 
@@ -151,7 +152,7 @@ def recorded(seq):
     configuration left by an earlier test in the process would be lent
     first."""
     gc.collect()
-    tpipe._EXECUTABLES.clear()
+    tstep.EXECUTABLES.clear()
     bf, ptrs = _pipeline(seq), {}
     ops, after_chunk1 = _push_recorded(bf, seq, N, ptrs, snapshot_at=8)
     assert bf.chunk_count == 4
@@ -223,15 +224,15 @@ def test_reset_state_equals_a_fresh_one(seq):
     is a copy, so the reset does not write the caller's array."""
     cfg, anchor = _cfg(), seq.poses[0].copy()
     bf = _pipeline(seq)
-    st, step = bf.state, bf._step
-    fresh = tpipe.make_fusion_state(cfg, bf.int_cam, tuple(bf.state.hist_c8.shape[1:3]), anchor, "cpu")
+    st, step = bf.state, bf._exe.state.step
+    fresh = tstep.make_fusion_state(cfg, bf.int_cam, tuple(bf.state.hist_c8.shape[1:3]), anchor, "cpu")
     ptrs = [t.data_ptr() for t in graphs.tensors(st)]
     for t in graphs.tensors((st, step)):
         t.fill_(True) if t.dtype == torch.bool else t.fill_(3)
-    tpipe.reset_fusion_state(st, anchor)
-    tpipe.reset_step(step)
+    tstep.reset_fusion_state(st, anchor)
+    tstep.reset_step(step)
     assert [t.data_ptr() for t in graphs.tensors(st)] == ptrs
-    want = graphs.tensors((fresh, tpipe.step_inputs(0, bf.S, bf.chunk_frames, "cpu")))
+    want = graphs.tensors((fresh, tstep.step_inputs(0, bf.S, bf.chunk_frames, "cpu")))
     for got, w in zip(graphs.tensors((st, step)), want, strict=True):
         assert torch.equal(got, w)
     np.testing.assert_array_equal(anchor, seq.poses[0])
@@ -309,7 +310,7 @@ def test_slot_tiers_on_the_card():
     cfg = dataclasses.replace(c, bundling=dataclasses.replace(c.bundling, max_num_images=256, max_frames=512))
     seq = generate_sequence(TIER_CHUNKS * cfg.bundling.submap_size + 1, W, H, device=dev)
     gc.collect()
-    tpipe._EXECUTABLES.clear()
+    tstep.EXECUTABLES.clear()
     graphed = tier_scan(torch, seq, cfg, dev, "graphed")
     eager = tier_scan(torch, seq, cfg, dev, "eager")
     out = check_tier_scan(graphed, eager, cfg, TIER_CHUNKS)

@@ -28,9 +28,9 @@ import pytest
 import torch
 
 from bundlefusion_tpu_torch.bundle import pipeline as tpipe
+from bundlefusion_tpu_torch.bundle import step as tstep
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.parallel.mesh import Mesh, make_mesh
-from bundlefusion_tpu_torch.parallel import spmd_pipeline
 from bundlefusion_tpu_torch.parallel.spmd_pipeline import ShardedRun
 from bundlefusion_tpu_torch.utils import graphs
 from torch_oplog import OpLog, assert_same_ops
@@ -96,7 +96,7 @@ def sharded(seqs):
     after round 1 is kept. Then the run is dropped, so its executables
     return to the cache."""
     gc.collect()
-    spmd_pipeline._EXECUTABLES.clear()  # idle executables of earlier tests would be lent first
+    tstep.EXECUTABLES.clear()  # idle executables of earlier tests would be lent first
     run = _new_run(seqs)
     log, ptrs, at = OpLog(), {}, {}
     call = graphs.Program.__call__
@@ -225,8 +225,8 @@ def test_solve_route_follows_the_mesh_layout():
     pipeline's device; a mesh over several devices keeps it eager, decided
     from the layout."""
     cpu, c0, c1 = torch.device("cpu"), torch.device("cuda", 0), torch.device("cuda", 1)
-    assert tpipe.solve_route(None, c0) is None
-    assert tpipe.solve_route(Mesh((cpu, cpu)), cpu) is None
-    assert tpipe.solve_route(Mesh((c0, c0)), c0) is None
-    assert tpipe.solve_route(Mesh((c0, c1)), c0) == "eager: the mesh spans 2 devices"
-    assert tpipe.solve_route(Mesh((c1, c1)), c0) == "eager: the mesh is on cuda:1, the pipeline on cuda:0"
+    assert tstep.solve_route(None, c0) is None
+    assert tstep.solve_route(Mesh((cpu, cpu)), cpu) is None
+    assert tstep.solve_route(Mesh((c0, c0)), c0) is None
+    assert tstep.solve_route(Mesh((c0, c1)), c0) == "eager: the mesh spans 2 devices"
+    assert tstep.solve_route(Mesh((c1, c1)), c0) == "eager: the mesh is on cuda:1, the pipeline on cuda:0"

@@ -28,6 +28,7 @@ from bundlefusion_tpu.bundle import pipeline as jpipe
 from bundlefusion_tpu.io import framewire as jfw
 from bundlefusion_tpu_torch.bundle import chunk as tchunk
 from bundlefusion_tpu_torch.bundle import pipeline as tpipe
+from bundlefusion_tpu_torch.bundle import ingest as tingest
 from bundlefusion_tpu_torch.config import tiny_test_config as t_tiny
 from bundlefusion_tpu_torch.io import framewire as tfw
 from util import cached_sequence
@@ -101,7 +102,7 @@ def test_unpack_wire_matches_jax(pack12, int_res):
     cf, h, w = 3, 96, 128
     hi, wi = int_res
     dims = (h, w, hi, wi, pack12)
-    n = tpipe._wire_nbytes(cf, *dims)
+    n = tingest.wire_nbytes(cf, *dims)
     assert n == jpipe._wire_nbytes(cf, *dims)
     rng = np.random.default_rng(2)
     top = 4096 if pack12 else 65536
@@ -109,7 +110,7 @@ def test_unpack_wire_matches_jax(pack12, int_res):
              rng.integers(0, 256, (h // 2, w // 2, 3), dtype=np.uint8), _d16((hi, wi), 20 + i, top),
              rng.integers(0, 256, (hi // 2, wi // 2, 3), dtype=np.uint8)) for i in range(cf)]
     flat = np.zeros(n, np.uint8)
-    views = tpipe._wire_views(flat, cf, *dims)
+    views = tingest._wire_views(flat, cf, *dims)
     assert len(views) == (3 if (hi, wi) == (h, w) else 5)
     for i, r in enumerate(rows):
         for k, (v, x) in enumerate(zip(views, r)):
@@ -117,7 +118,7 @@ def test_unpack_wire_matches_jax(pack12, int_res):
                 tfw.pack_depth12(x, out=v[i])
             else:
                 v[i] = x
-    got = tpipe._unpack_wire(torch.as_tensor(flat), cf, *dims)
+    got = tingest._unpack_wire(torch.as_tensor(flat), cf, *dims)
     want = jpipe._unpack_wire(jnp.asarray(flat), cf, *dims)
     for k, (g, j) in enumerate(zip(got, want)):
         g = g.numpy()
@@ -216,7 +217,7 @@ def modes():
 
 def test_ingest_modes_are_bit_identical(modes):
     (ba, oa) = modes["async"]
-    assert ba._async_ingest and not modes["sync"][0]._async_ingest and not modes["profile"][0]._async_ingest
+    assert ba._ingest.async_ingest and not modes["sync"][0]._ingest.async_ingest and not modes["profile"][0]._ingest.async_ingest
     assert oa.num_keyframes == 2 and oa.valid.all()
     for m in ("sync", "profile"):
         b, o = modes[m]
@@ -234,7 +235,7 @@ def test_upload_bytes_match_jax_wire(modes):
     """Chunk 0 carries chunk_frames rows, every later chunk the S new ones,
     in the JAX package's layout with the 12-bit depth wire (depth_max 4 m)."""
     bf = modes["async"][0]
-    assert bf._pack12
+    assert bf._ingest.pack12
     cf, s = bf.chunk_frames, bf.S
     dims = (H, W, H, W, True)
     assert bf.upload_bytes == [jpipe._wire_nbytes(cf, *dims), jpipe._wire_nbytes(s, *dims)]
@@ -258,9 +259,9 @@ def test_sixteen_bit_wire_without_the_ceiling(monkeypatch):
         bf.push_frame(seq.depth[i], seq.color[i])
     bf.sync()
     assert len(seen) == bf.chunk_count == 2
-    assert not bf._pack12 and bf.upload_bytes[1] == bf.S * (W * H * 2 + W * H + W * H // 4 * 3)
+    assert not bf._ingest.pack12 and bf.upload_bytes[1] == bf.S * (W * H * 2 + W * H + W * H // 4 * 3)
     for c, d in enumerate(seen):
-        want = np.stack([bf._frame_store[c * bf.S + i][0] for i in range(bf.chunk_frames)])
+        want = np.stack([bf._ingest.frame_store[c * bf.S + i][0] for i in range(bf.chunk_frames)])
         assert np.array_equal(d.numpy().view(np.uint16), want)
 
 
@@ -275,7 +276,7 @@ def test_worker_failure_reraises_from_sync(monkeypatch, stage):
 
     monkeypatch.setattr(tchunk, "process_chunk", boom)
     if stage == "upload":
-        monkeypatch.setattr(tpipe, "_unpack_wire", boom)
+        monkeypatch.setattr(tingest, "_unpack_wire", boom)
     bf = tpipe.BundleFusion(seq.camera, _cfg(), anchor_pose=seq.poses[0], device="cpu")
     for i in range(9):
         bf.push_frame(seq.depth[i], seq.color[i])
@@ -292,12 +293,12 @@ def test_second_pipeline_reuses_pooled_buffers():
     cfg = _cfg()
     bf = tpipe.BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device="cpu")
     bf.push_frame(seq.depth[0], seq.color[0])
-    ptrs = {b.flat.data_ptr() for b in [bf._stage_full, *bf._stage, *bf._fs_slabs]}
+    ptrs = {b.flat.data_ptr() for b in [bf._ingest.stage_full, *bf._ingest.stage, *bf._ingest.fs_slabs]}
     assert len(ptrs) == 5
     del bf
     gc.collect()
     bf2 = tpipe.BundleFusion(seq.camera, cfg, anchor_pose=seq.poses[0], device="cpu")
     bf2.push_frame(seq.depth[0], seq.color[0])
-    assert {b.flat.data_ptr() for b in [bf2._stage_full, *bf2._stage, *bf2._fs_slabs]} == ptrs
+    assert {b.flat.data_ptr() for b in [bf2._ingest.stage_full, *bf2._ingest.stage, *bf2._ingest.fs_slabs]} == ptrs
     # the FrameStore row lives in the pooled slab
-    assert np.shares_memory(bf2._frame_store[0][0], bf2._fs_slabs[0].flat.numpy())
+    assert np.shares_memory(bf2._ingest.frame_store[0][0], bf2._ingest.fs_slabs[0].flat.numpy())

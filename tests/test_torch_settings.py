@@ -105,7 +105,7 @@ def test_ring_holds_what_k1_integrates(runs):
     assert bt.int_cam.width == w and bt.int_cam.height == h
     for f in (0, 5, 12):
         dj, cj = bj._frame_store[f]
-        dt, ct = bt._frame_store[f]
+        dt, ct = bt._ingest.frame_store[f]
         assert np.array_equal(dj, dt) and np.array_equal(cj, ct), f
     r = st.history_cap
     slots = [f % r for f in range(N)]
@@ -113,7 +113,7 @@ def test_ring_holds_what_k1_integrates(runs):
     np.testing.assert_array_equal(np.asarray(bj._hist_c8)[slots], st.hist_c8[slots].numpy())
     if name == "filtered_depth":
         raw = jfw.frame_to_wire2(seq.depth[5], seq.color[5])[0]
-        assert not np.array_equal(bt._frame_store[5][0], raw)
+        assert not np.array_equal(bt._ingest.frame_store[5][0], raw)
 
 
 def test_integration_resolution_checkpoint_round_trip(tmp_path):

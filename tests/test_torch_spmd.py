@@ -20,7 +20,7 @@ from bundlefusion_tpu.io import framewire as jfw
 from bundlefusion_tpu.parallel import mesh as jmesh
 from bundlefusion_tpu.parallel.spmd_pipeline import run_sequences_sharded as j_run_sharded
 from bundlefusion_tpu_torch import interop
-from bundlefusion_tpu_torch.bundle.pipeline import RUNREC_FIELDS
+from bundlefusion_tpu_torch.bundle.step import RUNREC_FIELDS
 from bundlefusion_tpu_torch.config import tiny_test_config as t_tiny
 from bundlefusion_tpu_torch.fusion.blocks import INVALID_KEY
 from bundlefusion_tpu_torch.parallel.mesh import make_mesh

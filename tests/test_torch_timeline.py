@@ -41,6 +41,7 @@ import pytest
 import torch
 
 from bundlefusion_tpu_torch.bundle import pipeline as tpipe
+from bundlefusion_tpu_torch.bundle import step as tstep
 from bundlefusion_tpu_torch.bundle.checkpoint import load_checkpoint, save_checkpoint
 from bundlefusion_tpu_torch.config import tiny_test_config
 from bundlefusion_tpu_torch.io.synthetic import generate_sequence
@@ -104,7 +105,7 @@ def run(seq):
     mp.setattr(torch.profiler, "record_function", _SpanSpy)
     try:
         bf = tpipe.BundleFusion(seq.camera, _cfg(), anchor_pose=seq.poses[0], device="cpu")
-        assert bf._async_ingest
+        assert bf._ingest.async_ingest
         s = bf.S
         for i in range(N):
             if i == PROFILED * s + 1:  # chunk PROFILED's first new frame
@@ -307,7 +308,7 @@ def test_dense_counters(dense_runs):
     valid_px = (g.cache.depth > 0).sum(dim=(1, 2))
     recs = _records(bf)
     iters = bf.config.bundling.global_gn_iters
-    assert [r[k] for k in tpipe.DENSE_FIELDS for r in recs[:1]] == [0] * len(tpipe.DENSE_FIELDS)
+    assert [r[k] for k in tstep.DENSE_FIELDS for r in recs[:1]] == [0] * len(tstep.DENSE_FIELDS)
     for r in recs[1:]:
         c = r["chunk"]
         on = g.dense_pair_on & g.valid[g.dense_pairs_a.long()] & g.valid[g.dense_pairs_b.long()] & (
@@ -324,7 +325,7 @@ def test_dense_counters(dense_runs):
 
 def test_graphed_and_eager_dense_counters_are_equal(dense_runs):
     a, b = (_records(dense_runs[m]) for m in ("graphed", "eager"))
-    assert [{k: r[k] for k in tpipe.DENSE_FIELDS} for r in a] == [{k: r[k] for k in tpipe.DENSE_FIELDS} for r in b]
+    assert [{k: r[k] for k in tstep.DENSE_FIELDS} for r in a] == [{k: r[k] for k in tstep.DENSE_FIELDS} for r in b]
     assert [r["dense_pairs_live"] for r in a][-1] > 0
 
 
@@ -348,7 +349,7 @@ def test_checkpoint_keeps_the_dense_counters(dense_runs, tmp_path, saved):
 def test_sparse_pipeline_has_no_dense_term(run):
     bf, _ = run
     for r in _records(bf):
-        assert r["timeline"]["device_iters"] == {} and not any(r[k] for k in tpipe.DENSE_FIELDS)
+        assert r["timeline"]["device_iters"] == {} and not any(r[k] for k in tstep.DENSE_FIELDS)
     assert bf.state.stamps.shape[1] == 2 * len(timeline.SPANS)
 
 
@@ -364,7 +365,7 @@ def test_dense_counters_graphed_and_eager_on_the_card():
     dev = torch.device("cuda", 0)
     seq = generate_sequence(N, width=128, height=96, device=dev)
     gc.collect()
-    tpipe._EXECUTABLES.clear()
+    tstep.EXECUTABLES.clear()
     recs = {}
     for mode in ("graphed", "eager"):
         with graphs.disable_graphs() if mode == "eager" else contextlib.nullcontext():
@@ -379,7 +380,7 @@ def test_dense_counters_graphed_and_eager_on_the_card():
         del bf
         gc.collect()
     a, b = recs["graphed"], recs["eager"]
-    assert [[r[k] for k in tpipe.DENSE_FIELDS] for r in a] == [[r[k] for k in tpipe.DENSE_FIELDS] for r in b]
+    assert [[r[k] for k in tstep.DENSE_FIELDS] for r in a] == [[r[k] for k in tstep.DENSE_FIELDS] for r in b]
     assert a[-1]["dense_pairs_live"] > 0
     for r in a[1:]:
         assert len(r["timeline"]["device_iters"]["global_dense"]) == tiny_test_config().bundling.global_gn_iters
