@@ -38,6 +38,8 @@ from .trajectory import TrajectoryState
 # device state: fields of the pipeline's FusionState
 _STATES = {"graph": GlobalGraph, "traj": TrajectoryState, "ctrl": DeviceCtrl}
 _DENSE = ("ring_frame", "local_trajs", "chunk_valid", "runlog_rows", "blocks_updated", "gc_freed_total")
+# the port's own counter tables (the JAX package's checkpoints have none)
+_COUNTERS = ("dense_counts", "pcg_counts")
 # host state: pipeline attribute ("_ingest.": its ingest's) -> key in the file (the JAX package's keys)
 _HOST_FIELDS = {
     "num_frames": "num_frames",
@@ -65,7 +67,7 @@ def save_checkpoint(bf: BundleFusion, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     st = bf.state
     dev = {name: state_to_numpy(getattr(st, name)) for name in _STATES}
-    dev.update({name: getattr(st, name).cpu().numpy() for name in (*_DENSE, "dense_counts")})
+    dev.update({name: getattr(st, name).cpu().numpy() for name in (*_DENSE, *_COUNTERS)})
     t = st.table
     live = torch.nonzero(t.key_of_slot != INVALID_KEY).reshape(-1)
     dev["table"] = {
@@ -105,8 +107,9 @@ def load_checkpoint(path: str, *, device: torch.device | str = "cuda") -> Bundle
             copy_into(getattr(st, name), state_from_numpy(dev[name], bf.device, cls))
         for name in _DENSE:
             getattr(st, name).copy_(put(dev[name]))
-        if "dense_counts" in dev:  # a checkpoint from before the dense-term counters: they stay 0
-            st.dense_counts.copy_(put(dev["dense_counts"]))
+        for name in _COUNTERS:
+            if name in dev:  # a checkpoint from before these counters: they stay 0
+                getattr(st, name).copy_(put(dev[name]))
         tab = dev["table"]
         t = st.table
         for name in ("keys", "slot_of", "key_of_slot"):

@@ -40,7 +40,7 @@ from ..utils.tensor_ops import copy_into
 from ..utils.timing import TimingLog
 from . import global_graph, step as step_mod, trajectory
 from .ingest import Ingest
-from .step import DENSE_FIELDS, RUNREC_FIELDS, ChunkStep, FusionState, StepInputs
+from .step import DENSE_FIELDS, PCG_FIELDS, RUNREC_FIELDS, ChunkStep, FusionState, StepInputs
 
 # the TSDF maintenance of the plan_fuse stage and of finalize's service,
 # looked up in this module at every call, so that a fault planted on it
@@ -440,12 +440,14 @@ class BundleFusion:
         times go to the TimingLog."""
         rows = self.state.runlog_rows[: self.chunk_count].cpu().numpy()
         dense = self.state.dense_counts[: self.chunk_count].cpu().numpy()
+        pcg = self.state.pcg_counts[: self.chunk_count].cpu().numpy()
         stamps = self.state.stamps[: self.chunk_count].cpu().numpy()
         offset_ns, err_ns = timeline.calibrate(self.device)
         flags = ("chunk_valid", "kf_valid", "reloc", "tracking_lost")  # the other fields are counts
         for c in range(rows.shape[0]):
             rec = {k: bool(v) if k in flags else int(v) for k, v in zip(RUNREC_FIELDS, rows[c])}
             rec.update({k: int(v) for k, v in zip(DENSE_FIELDS, dense[c])})
+            rec.update({k: int(v) for k, v in zip(PCG_FIELDS, pcg[c])})
             if c in self._host.by_chunk:  # a chunk this pipeline ran (not one restored)
                 rec["timeline"] = timeline.chunk_record(stamps[c], self._host.by_chunk[c], offset_ns, err_ns)
                 for span, (b, e) in rec["timeline"]["device"].items():

@@ -97,6 +97,10 @@ RUNREC_WIDTH = len(RUNREC_FIELDS)
 # in a table of their own beside the rows (the JAX package's rows have none);
 # 0 without use_dense_global
 DENSE_FIELDS = ("dense_pairs_live", "dense_frames_live", "dense_px_valid", "dense_assoc_depth", "dense_assoc_color")
+# the global solve's PCG counters, int32, in a table of their own: the live
+# rows it solved (6 x (the last free slot + 1)) and the PCG iterations run
+# before convergence, summed over its GN iterations; 0 where no global solve ran
+PCG_FIELDS = ("pcg_rows", "pcg_iters_run")
 
 
 @dataclass
@@ -278,6 +282,7 @@ class FusionState:
     runlog_rows: torch.Tensor  # [Cmax + 1, RUNREC_WIDTH], read once at finalize
     stamps: torch.Tensor  # [Cmax + 1, 2 * (len(timeline.SPANS) + dense iters)] int64 device clock, read once
     dense_counts: torch.Tensor  # [Cmax + 1, len(DENSE_FIELDS)] int32, read once at finalize
+    pcg_counts: torch.Tensor  # [Cmax + 1, len(PCG_FIELDS)] int32, read once at finalize
     blocks_updated: torch.Tensor  # f32, measured work counter
     gc_freed_total: torch.Tensor  # f32
 
@@ -314,6 +319,7 @@ def make_fusion_state(cfg: Config, int_cam: CameraModel, color_hw: tuple[int, in
         runlog_rows=torch.zeros((max_chunks + 1, RUNREC_WIDTH), device=dev),
         stamps=timeline.make_table(max_chunks + 1, dev, bc.global_gn_iters if bc.use_dense_global else 0),
         dense_counts=torch.zeros((max_chunks + 1, len(DENSE_FIELDS)), dtype=torch.int32, device=dev),
+        pcg_counts=torch.zeros((max_chunks + 1, len(PCG_FIELDS)), dtype=torch.int32, device=dev),
         blocks_updated=torch.zeros((), device=dev),
         gc_freed_total=torch.zeros((), device=dev),
     )
@@ -433,10 +439,12 @@ def _plan_fuse_step(st: FusionState, cfg: AppConfig, int_cam: CameraModel, step:
 def global_solve_step(st: FusionState, step: StepInputs, cache_cam: CameraModel, cfg,
                       stamps: timeline.Stamps | None = None) -> None:
     """Stage ``global_solve``: the global BA of the keyframe graph
-    (``global_graph.global_solve``), in place; with its dense term, the
-    term's GN iterations stamped with ``stamps`` and its counters written
-    into row ``step.chunk`` of ``st.dense_counts``."""
+    (``global_graph.global_solve``), in place; its PCG counters written into
+    row ``step.chunk`` of ``st.pcg_counts``; with its dense term, the term's
+    GN iterations stamped with ``stamps`` and its counters written into row
+    ``step.chunk`` of ``st.dense_counts``."""
     _, stats, _ = global_graph.global_solve(st.graph, cache_cam, cfg, stamps=stamps)
+    put_row(st.pcg_counts, step.chunk, torch.stack([stats.pcg_rows[-1], stats.pcg_iters_run.sum(dtype=torch.int32)]))
     if stats.dense_counts is not None:
         put_row(st.dense_counts, step.chunk, stats.dense_counts)
 

@@ -28,12 +28,13 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("tsdf_integrate.cu", "preprocess.cu", "assemble.cu", "sift_sample.cu", "dense_verify.cu", "dense_pairs.cu",
-           "stamp.cu")
+           "pcg.cu", "stamp.cu")
 LIB_PATH = os.path.join(BUILD_DIR, "libbf_kernels.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "bf_tsdf_fuse": [_P, _P, _P, _P, _I, _P, _L, _P, _L, _P, _L, _I, _I, _P, _I, _I, _P, _I, _I, _P, _P]
     + [_F] * 8 + [_P],
@@ -43,6 +44,8 @@ _SIGNATURES = {
     "bf_sift_sample": [_P] * 8 + [_I] * 5 + [_F] * 4 + [_P],
     "bf_dense_verify": [_P] * 4 + [_L] + [_P] * 4 + [_L] + [_P] * 3 + [_I] * 4 + [_F] * 13 + [_P],
     "bf_dense_pairs": [_P] * 3 + [_I] + [_P] * 13 + [_I] * 5 + [_F] * 16 + [_P],
+    "bf_pcg": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _P],
+    "bf_pcg_config": [_I, _IP, _IP, _IP],
     "bf_stamp": [_P, _P] + [_I] * 5 + [_P],
 }
 _RESTYPES = {"bf_assemble_scratch_bytes": _L}  # every other function returns its cudaError

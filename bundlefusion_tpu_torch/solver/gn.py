@@ -30,6 +30,8 @@ class SolveStats:
     dense_color_res: torch.Tensor  # [iters]
     pcg_final_rz: torch.Tensor  # [iters]
     final_res_norms: torch.Tensor  # [R] per-correspondence residual after solve
+    pcg_rows: torch.Tensor  # [iters] int32: the live rows each PCG solved (PCGResult.rows)
+    pcg_iters_run: torch.Tensor  # [iters] int32: the iterations each PCG ran before converging
     # [iters, 2] the dense term's depth and colour associations, where it ran
     dense_assoc: torch.Tensor | None = None
     # [5] int32 of a global solve with its dense term (global_graph.dense_counts)
@@ -82,16 +84,16 @@ def solve_gn(poses, problem: GNProblem, caches: FrameCache | None, cache_cam: Ca
             dd = torch.zeros((), device=dev)
             dc = torch.zeros((), device=dev)
         H, b = assemble_system(n, idx_a, idx_b, JtJ, Jtr, problem.free_mask)
-        sol = pcg_solve(H, b, pcg_iters)
+        sol = pcg_solve(H, b, pcg_iters, free_mask=problem.free_mask)
         upd = se3.se3_exp(sol.x.reshape(n, 6))
         new_poses = torch.einsum("nij,njk->nik", upd, poses)
         poses = torch.where(problem.free_mask[:, None, None], new_poses, poses)
         s = torch.sum(problem.corrs.weight * res_norms**2)
-        stats.append((s, dd, dc, sol.final_rz))
+        stats.append((s, dd, dc, sol.final_rz, sol.rows, sol.iters_run))
 
     _, _, final_norms = sparse_residuals(poses, problem.corrs)
-    s, dd, dc, rz = (torch.stack(list(x)) for x in zip(*stats))
-    return poses, SolveStats(s, dd, dc, rz, final_norms, torch.stack(assoc) if assoc else None)
+    s, dd, dc, rz, rows, run = (torch.stack(list(x)) for x in zip(*stats))
+    return poses, SolveStats(s, dd, dc, rz, final_norms, rows, run, torch.stack(assoc) if assoc else None)
 
 
 def prune_max_residuals(corrs: SparseCorrs, res_norms, max_res_thresh: float, max_removals: int):

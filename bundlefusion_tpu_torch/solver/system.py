@@ -4,17 +4,23 @@ The per-pair 12x12 blocks are summed once into a dense [6N, 6N] system and
 PCG runs with plain matvecs. On a card the assembly is kernel K3
 (``csrc/assemble.cu``); its twin, for CPU tensors, scatter-adds on
 PyTorch's deterministic kernels (``tensor_ops.deterministic``): duplicates
-sum in index order, so runs are bit-reproducible as in the JAX package.
+sum in index order, so runs are bit-reproducible as in the JAX package. On
+a card the PCG is kernel K7 (``csrc/pcg.cu``), the whole solve in one
+launch over the live rows; its twin is the JAX package's masked loop.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from .. import kernels
 from ..utils.tensor_ops import deterministic
+
+_CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 
 
 @kernels.counted
@@ -86,11 +92,66 @@ class PCGResult:
     x: torch.Tensor  # [6N]
     iterations: int
     final_rz: torch.Tensor  # residual quadratic norm
+    rows: torch.Tensor  # int32 0-d: the live rows solved, 6 x (the last free slot + 1)
+    iters_run: torch.Tensor  # int32 0-d: the iterations run before rz <= tol
 
 
-def pcg_solve(H: torch.Tensor, b: torch.Tensor, num_iters: int, tol: float = 1e-10) -> PCGResult:
+@kernels.counted
+def pcg_solve(H: torch.Tensor, b: torch.Tensor, num_iters: int, tol: float = 1e-10,
+              free_mask: torch.Tensor | None = None) -> PCGResult:
     """Jacobi-preconditioned CG with a fixed iteration count; converged
-    systems keep iterating with masked (no-op) updates."""
+    systems keep iterating with masked (no-op) updates. ``free_mask`` [N]
+    (all free if None) gives the live rows: past the last free slot H is
+    the assembly's gauge-fixed identity and b is 0, so x is 0 there.
+
+    CUDA tensors launch kernel K7 (``csrc/pcg.cu``): the whole solve in one
+    launch over the live rows, stopping once rz <= tol (equal to the twin
+    up to the order of its sums); CPU tensors run the twin."""
+    if not H.is_cuda:
+        return _pcg_solve_torch(H, b, num_iters, tol, free_mask)
+    m = b.shape[0]
+    if m % 6 or m == 0:
+        raise ValueError(f"b: expected 6 x N rows, got {m}")
+    n = m // 6
+    if num_iters < 0:
+        raise ValueError(f"num_iters: expected >= 0, got {num_iters}")
+    dev = H.device
+    if free_mask is None:
+        free_mask = torch.ones(n, dtype=torch.bool, device=dev)
+    H, b, free_mask = (t.contiguous() for t in (H, b, free_mask))
+    kernels.require(H, "H", torch.float32, (m, m))
+    kernels.require(b, "b", torch.float32, (m,))
+    kernels.require(free_mask, "free_mask", torch.bool, (n,))
+    cluster, threads, smem = _k7_launch(n, dev.index if dev.index is not None else torch.cuda.current_device())
+    x = torch.empty(m, dtype=torch.float32, device=dev)
+    rz = torch.empty((), dtype=torch.float32, device=dev)
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    err = kernels.library().bf_pcg(
+        H.data_ptr(), b.data_ptr(), free_mask.data_ptr(), x.data_ptr(), rz.data_ptr(), counts.data_ptr(), n,
+        num_iters, tol, cluster, threads, smem, kernels.stream_ptr(dev),
+    )
+    kernels.check(err, "pcg")
+    kernels.launched(pcg_solve)
+    return PCGResult(x=x, iterations=num_iters, final_rz=rz, rows=counts[0], iters_run=counts[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _k7_launch(n: int, device_index: int) -> tuple[int, int, int]:
+    """K7's launch shape for ``n`` slots on a card: (cluster size, threads,
+    shared memory bytes), fixed by ``n`` alone so that a captured graph
+    serves every live bound."""
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device_index):
+        err = kernels.library().bf_pcg_config(n, *(ctypes.byref(v) for v in out))
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"pcg_solve: a system of {n} slots does not fit kernel K7's shared memory")
+    kernels.check(err, "pcg (launch shape)")
+    return tuple(v.value for v in out)
+
+
+def _pcg_solve_torch(H: torch.Tensor, b: torch.Tensor, num_iters: int, tol: float = 1e-10,
+                     free_mask: torch.Tensor | None = None) -> PCGResult:
+    """K7's twin: every row, every iteration, masked once converged."""
     diag = torch.diagonal(H)
     Minv = torch.where(torch.abs(diag) > 1e-12, 1.0 / diag, 0.0)
     x = torch.zeros_like(b)
@@ -98,8 +159,10 @@ def pcg_solve(H: torch.Tensor, b: torch.Tensor, num_iters: int, tol: float = 1e-
     z = Minv * r
     p = z
     rz = torch.dot(r, z)
+    actives = []
     for _ in range(num_iters):
         active = rz > tol
+        actives.append(active)
         Ap = H @ p
         pAp = torch.dot(p, Ap)
         alpha = torch.where(active & (torch.abs(pAp) > 1e-20), rz / pAp, 0.0)
@@ -110,4 +173,16 @@ def pcg_solve(H: torch.Tensor, b: torch.Tensor, num_iters: int, tol: float = 1e-
         beta = torch.where(active & (rz > 1e-20), rz_new / rz, 0.0)
         p = torch.where(active, z + beta * p, p)
         rz = torch.where(active, rz_new, rz)
-    return PCGResult(x=x, iterations=num_iters, final_rz=rz)
+    run = torch.stack(actives).sum(dtype=torch.int32) if actives else torch.zeros((), dtype=torch.int32,
+                                                                                    device=b.device)
+    return PCGResult(x=x, iterations=num_iters, final_rz=rz, rows=live_rows(free_mask, b.shape[0], b.device),
+                     iters_run=run)
+
+
+def live_rows(free_mask: torch.Tensor | None, m: int, device) -> torch.Tensor:
+    """6 x (the last free slot + 1), int32 0-d on ``device``: the rows K7
+    solves (``m``, every row, without a mask)."""
+    if free_mask is None:
+        return torch.full((), m, dtype=torch.int32, device=device)
+    slots = torch.arange(1, free_mask.shape[0] + 1, dtype=torch.int32, device=free_mask.device)
+    return 6 * torch.max(torch.where(free_mask, slots, 0))

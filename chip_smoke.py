@@ -46,14 +46,21 @@ exits non-zero; there is no CPU fallback):
                 (``pair_edge_inputs``), timed eagerly and in a CUDA graph
                 against its twin and the einsum form it replaced
                 (``einsum_dense_pair_blocks``), beside the bound of
-                ``benchmark/counts/dense.py``. Every kernel bit-equal to
-                its twin.
+                ``benchmark/counts/dense.py``; K7 (the PCG solve) at the
+                local solve's 66 rows and at 1,200 slots with 7, 64 and 146
+                keyframes (``pcg_inputs``), one launch a call, reruns
+                bit-identical, against its twin (the cuBLAS form the port
+                ran, ``pcg_within``), its device kernels traced in a process
+                of their own (K7 alone, no gemv), its edge cases
+                (``pcg_edge_inputs``), timed
+                eagerly and in a CUDA graph beside ``pcg_bound``. Every
+                kernel but K7 bit-equal to its twin.
   4. slice    — the flagship configuration of ``bench.py`` (640x480, 262,144
                 blocks, 1 cm voxels) on 66 rendered frames through
                 push_frame -> flush -> outputs (async ingest, the default):
                 a warm pass, then a timed pass; every chunk valid, ATE <= 0.5
-                cm, all five kernels launched (K1, K2, K4, K5 as counted per
-                chunk).
+                cm, every kernel launched (K1, K2, K4, K5 as counted per
+                chunk; K3, K6, K7 at least once a solve iteration).
                 Then a small configuration (128x96, 13 frames) run on the CPU
                 (twins) and twice on the card (kernels): CPU and card agree,
                 and the card runs are bit-identical.
@@ -218,13 +225,20 @@ exits non-zero; there is no CPU fallback):
                 bfloat16 control that fails; the card's name and power
                 limit, the pipeline's peak memory and graph_step,
                 global_solve and global_dense medians by slot tier.
+ 17. pcgsys   — K7 on the global solve's systems of a scan of the 1 cm and
+                the dense cells (``PCG_CELLS`` at ``PCG_SEED``; the last GN
+                iteration's H, b and free slots at ``PCG_CHUNKS``, copied
+                by a probe captured with the stage) against the cuBLAS form
+                and the float64 iterations (``pcg_within``), each timed in
+                a CUDA graph; the runlog's ``pcg_rows`` and
+                ``pcg_iters_run``; global_solve and local_ba medians.
 
 Phases 4-14 run the chunk step graphed (each program captured at its first
 call when its executable is fresh, chunk 0's stages at chunk 0, the graph
 step's slot tiers all at chunk 1, and replayed after); phase 5's window replays the executable phase 4 captured,
 and says so. Phases 4 and 6-15 set the kernels' launch counts to 0 before
 their run and read them after it (a replay adds the launches its graph
-captured): each of their paths must launch all five kernels. Small outputs
+captured): each of their paths must launch every kernel. Small outputs
 (summaries, trajectories, previews) go to the git-ignored ``chiprun_out/``.
 
 The last two lines are a JSON object of the kernels' checks and timings and
@@ -1430,8 +1444,252 @@ def check_k6(torch, dev, cache, poses, cam):
                         edge_cases=edges, cases=out)
 
 
+# K7 (the PCG solve): its cases as (seed, slots n, keyframes, slots inside
+# the live bound that are not free, rows of each pair's J, PCG iterations):
+# the local solve's shape, and the global solve's 1,200 slots with a scan's
+# 7, 64 and 146 keyframes; pairs of 8-row Js make systems that run every
+# iteration, as a scan's global systems do
+K7_CASES = {
+    "local_11": (21, 11, 11, (), 8, 32),
+    "global_7": (22, 1200, 7, (), 8, 64),
+    "global_64": (23, 1200, 64, (30,), 8, 64),
+    "global_146": (24, 1200, 146, (77,), 8, 64),
+}
+K7_EDGE_CASES = ("nothing_free", "first_iteration", "zero_diagonal")
+# each SM's shared memory delivers 128 bytes a clock (CUDA C++ Programming
+# Guide, compute capability 9.0: 32 banks of 4 bytes)
+SMEM_BYTES_PER_SM_S = 128 * CLOCK_HZ
+SMS = 132
+
+
+def gauge_system_inputs(seed: int, n: int, keyframes: int, not_free=(), j_rows: int = 24, extra_pairs: int = 8):
+    """A normal-equation system as the global solve has it, for
+    ``assemble_system``: ``n`` slots, keyframes 0 .. keyframes - 1 joined
+    in a chain and by ``extra_pairs`` random pairs, each pair the J^T J of
+    a random [j_rows, 12] J (fewer rows, a worse-conditioned system) and a
+    random Jtr; slot 0 and ``not_free`` are gauge-fixed, as is every slot
+    past the keyframes. numpy (pa, pb, JtJ, Jtr, free)."""
+    rng = np.random.default_rng(seed)
+    pa, pb = list(range(keyframes - 1)), list(range(1, keyframes))
+    for _ in range(extra_pairs if keyframes > 2 else 0):
+        a, b = sorted(rng.choice(keyframes, size=2, replace=False))
+        pa.append(int(a))
+        pb.append(int(b))
+    J = rng.normal(size=(len(pa), j_rows, 12)).astype(np.float32)
+    JtJ = np.einsum("pki,pkj->pij", J, J).astype(np.float32)
+    Jtr = (0.1 * rng.normal(size=(len(pa), 12))).astype(np.float32)
+    free = np.zeros(n, bool)
+    free[1:keyframes] = True
+    free[list(not_free)] = False
+    return np.asarray(pa, np.int32), np.asarray(pb, np.int32), JtJ, Jtr, free
+
+
+def pcg_inputs(case: str):
+    """K7's case ``case`` of ``K7_CASES`` as ``assemble_system`` takes it
+    (``gauge_system_inputs``), and the PCG iterations."""
+    seed, n, keyframes, not_free, j_rows, iters = K7_CASES[case]
+    return gauge_system_inputs(seed, n, keyframes, not_free, j_rows), iters
+
+
+def pcg_edge_inputs(case: str):
+    """K7's edge cases at n = 16 (``K7_EDGE_CASES``), numpy (H, b, free):
+    nothing free (H the gauge's scaled identity, b 0); a system solved in
+    the first iteration (a diagonal H of powers of two and b of small
+    integers on the free rows: x = b / diag exactly, then r = 0); a free
+    row whose diagonal entry, row and column are 0 (its preconditioner
+    entry is 0, so its x stays 0)."""
+    import torch
+
+    from bundlefusion_tpu_torch.solver import system
+
+    n = 16
+    pa, pb, JtJ, Jtr, free = assembly_inputs(31, n, 512, 12, 20, 0.8)
+    if case == "nothing_free":
+        free[:] = False
+    H, b = system._assemble_system_torch(n, *(torch.as_tensor(a) for a in (pa, pb, JtJ, Jtr, free)))
+    H, b = H.numpy(), b.numpy()
+    if case == "first_iteration":
+        rng = np.random.default_rng(32)
+        live = np.repeat(free, 6)
+        H = np.diag(np.where(live, 2.0 ** rng.integers(-3, 4, 6 * n), 1.0)).astype(np.float32)
+        b = np.where(live, rng.integers(-8, 9, 6 * n), 0).astype(np.float32)
+    elif case == "zero_diagonal":
+        k = 6 * 5 + 2  # a row of free keyframe 5
+        H[k, :] = 0.0
+        H[:, k] = 0.0
+    return H, b, free
+
+
+def pcg_against(torch, got, want, H, b, ref=None) -> dict:
+    """K7's solve ``got`` against the cuBLAS form's ``want`` (the twin on
+    the card) on H x = b: x's difference in norm relative to the cuBLAS
+    form's x, each residual |H x - b| (float64), the live rows and the
+    iterations each ran; with ``ref``, the same iterations in float64, each
+    x's distance from its x relative to its norm."""
+    H64, b64 = H.double(), b.double()
+
+    def res(x):
+        return float(torch.linalg.vector_norm(H64 @ x.double() - b64))
+
+    def rel(x, y):
+        scale = float(torch.linalg.vector_norm(y.double()))
+        diff = float(torch.linalg.vector_norm(x.double() - y.double()))
+        return diff / scale if scale else diff
+
+    out = dict(x_rel=rel(got.x, want.x), residual=res(got.x), residual_cublas=res(want.x), rows=int(got.rows),
+               rows_cublas=int(want.rows), iters_run=int(got.iters_run), iters_run_cublas=int(want.iters_run),
+               rz=float(got.final_rz), rz_cublas=float(want.final_rz))
+    if ref is not None:
+        out.update(x_rel_f64=rel(got.x, ref.x), x_rel_f64_cublas=rel(want.x, ref.x))
+    return out
+
+
+def pcg_within(cmp: dict) -> bool:
+    """K7 against the cuBLAS form: the same live rows, the residual no worse
+    than 1.1 times the cuBLAS form's, and x within 1e-4 of its x relative
+    in norm or, where the float64 iterations were run (``x_rel_f64``), no
+    farther from theirs than 1e-4 or twice the cuBLAS form's distance: on a
+    scan's ill-conditioned systems, 64 float32 iterations summed in two
+    orders part by more than 1e-4."""
+    near = cmp["x_rel"] <= 1e-4 or ("x_rel_f64" in cmp
+                                    and cmp["x_rel_f64"] <= max(1e-4, 2.0 * cmp["x_rel_f64_cublas"]))
+    return near and cmp["residual"] <= 1.1 * cmp["residual_cublas"] and cmp["rows"] == cmp["rows_cublas"]
+
+
+def pcg_bound(rows: int, iters: int) -> dict:
+    """K7's least time for ``iters`` iterations over ``rows`` live rows: the
+    live block read once from HBM, then each iteration's product reading
+    it again from shared memory, at the whole card's peaks (``bound_ms``)
+    and at the peaks of the cluster's 16 SMs (``cluster_bound_ms``); the
+    product's 2 rows^2 operations an iteration stay below either."""
+    block = 4.0 * rows * rows
+    first = block / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * (first + iters * block / (SMS * SMEM_BYTES_PER_SM_S)),
+                cluster_bound_ms=1e3 * (first + iters * block / (16 * SMEM_BYTES_PER_SM_S)))
+
+
+# K7's device kernels traced in a process of their own (``pcg_trace``)
+PCG_TRACE = """
+import json, torch, chip_smoke as cs
+from bundlefusion_tpu_torch.solver import system
+dev = torch.device("cuda", 0)
+calls = []
+for case in ("global_146", "local_11"):
+    arrays, iters = cs.pcg_inputs(case)
+    H, b = system.assemble_system(arrays[4].shape[0], *(torch.as_tensor(a, device=dev) for a in arrays))
+    args = (H, b, iters, 1e-10, torch.as_tensor(arrays[4], device=dev))
+    system.pcg_solve(*args)
+    calls.append(lambda args=args: system.pcg_solve(*args))
+print(json.dumps(cs.pcg_kernels(torch, calls)))
+"""
+
+
+def pcg_trace() -> list:
+    """``pcg_kernels`` of one global and one local ``pcg_solve``, in a fresh
+    process: in a long one, a profiler session can miss kernels that
+    earlier sessions leave it (``profile_stages``' opt-verify counted 0-2
+    of its 7 in phase 12), and a session of its own could change what later
+    ones see."""
+    proc = subprocess.run([sys.executable, "-c", PCG_TRACE], cwd=HERE, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"K7's trace exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    return [tuple(x) for x in json.loads(proc.stdout.strip().splitlines()[-1])]
+
+
+def pcg_kernels(torch, calls) -> list:
+    """The device kernels of ``calls`` (functions), by name and count, from
+    a device-only trace."""
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    path = os.path.join(OUT_DIR, "pcg_trace.json")
+    events = trace_events(prof, path)
+    os.remove(path)
+    names: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            names[short_kernel(e["name"])] = names.get(short_kernel(e["name"]), 0) + 1
+    return sorted(names.items())
+
+
+def check_k7(torch, dev):
+    """K7 against its twin, today's cuBLAS form (one gemv of the whole
+    [6n, 6n] H and ~14 small launches an iteration), at every case of
+    ``K7_CASES`` (``pcg_within``), one launch a call, reruns bit-identical;
+    the kernel eagerly and in a CUDA graph, the cuBLAS form in a graph,
+    beside K7's bound (``pcg_bound``). A device-only trace of a global and
+    a local call (``pcg_trace``) shows K7 alone, and no gemv. The edge cases
+    (``pcg_edge_inputs``): bit for bit with the twin where its arithmetic
+    is exact, else within ``pcg_within``, x 0 on the row whose diagonal is
+    0."""
+    from bundlefusion_tpu_torch.solver import system
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out = {}
+    for name in K7_CASES:
+        arrays, iters = pcg_inputs(name)
+        n = arrays[4].shape[0]
+        H, b = system.assemble_system(n, *(torch.as_tensor(a, device=dev) for a in arrays))
+        free = torch.as_tensor(arrays[4], device=dev)
+        args = (H, b, iters, 1e-10, free)
+        launches = system.pcg_solve.launches
+        got = system.pcg_solve(*args)
+        again = system.pcg_solve(*args)
+        torch.cuda.synchronize()
+        if system.pcg_solve.launches != launches + 2:
+            raise AssertionError(f"K7 {name}: {(system.pcg_solve.launches - launches) / 2} launches a call")
+        same = torch.equal(got.x, again.x) and torch.equal(got.final_rz, again.final_rz)
+        want = system._pcg_solve_torch(*args)
+        cmp = pcg_against(torch, got, want, H, b)
+        if not (same and pcg_within(cmp)):
+            raise AssertionError(f"K7 {name}: reruns bit-identical {same}; against the cuBLAS form {cmp}")
+        ms = cuda_ms(torch, lambda: system.pcg_solve(*args), n=10)
+        gms = graph_ms(torch, lambda: system.pcg_solve(*args))
+        plain_ms = graph_ms(torch, lambda: system._pcg_solve_torch(*args), calls=2, n=5)
+        bnd = pcg_bound(cmp["rows"], cmp["iters_run"])
+        rec = dict(n=n, iters=iters, **cmp, ms=ms, graph_ms=gms, plain_ms=plain_ms, **bnd)
+        phase("kernels", f"K7 pcg {name}: n={n}, {cmp['rows']} live rows, {cmp['iters_run']} of {iters} iterations "
+              f"run (cuBLAS form {cmp['iters_run_cublas']}); one launch a call, reruns bit-identical; x within "
+              f"{cmp['x_rel']:.3g} of the cuBLAS form's, |Hx - b| {cmp['residual']:.4g} against "
+              f"{cmp['residual_cublas']:.4g}; kernel {ms:.4f} ms eagerly, {gms:.4f} ms in a graph; cuBLAS form "
+              f"{plain_ms:.4f} ms in a graph; bound {bnd['bound_ms']:.4f} ms at the card's peaks (share "
+              f"{bnd['bound_ms'] / gms:.4f}), {bnd['cluster_bound_ms']:.4f} ms at 16 SMs' (share "
+              f"{bnd['cluster_bound_ms'] / gms:.4f})")
+        out[name] = rec
+        del got, again, want, args, H, b, free
+    torch.cuda.empty_cache()
+    names = pcg_trace()
+    phase("kernels", f"K7 device kernels of one global and one local pcg_solve (a process of their own): {names}")
+    if names != [("pcg_kernel", 2)]:
+        raise AssertionError(f"K7: a pcg_solve launched other kernels than K7 once: {names}")
+    edges = []
+    for case in K7_EDGE_CASES:
+        H, b, free = (torch.as_tensor(a, device=dev) for a in pcg_edge_inputs(case))
+        got = system.pcg_solve(H, b, 64, 1e-10, free)
+        want = system._pcg_solve_torch(H, b, 64, 1e-10, free)
+        exact = case != "zero_diagonal"
+        ok = (torch.equal(got.x, want.x) and torch.equal(got.final_rz, want.final_rz)
+              and int(got.iters_run) == int(want.iters_run)) if exact else pcg_within(pcg_against(torch, got, want,
+                                                                                                  H, b))
+        if case == "zero_diagonal":
+            ok = ok and float(got.x[6 * 5 + 2]) == 0.0 == float(want.x[6 * 5 + 2])
+        if not ok:
+            raise AssertionError(f"K7 edge case {case}: {pcg_against(torch, got, want, H, b)}")
+        edges.append(f"{case} ({int(got.iters_run)} iterations, {int(got.rows)} rows)")
+    phase("kernels", f"K7 edge cases: {', '.join(edges)}")
+    g = out["global_146"]
+    return kernel_entry("pcg", "bundlefusion_tpu_torch/csrc/pcg.cu", "bundlefusion_tpu/solver/system.py:72",
+                        max(r["x_rel"] for r in out.values()), g["ms"], g["plain_ms"], g["bound_ms"],
+                        "bytes (shared memory)", None, max_abs_err_is="the largest relative difference in norm "
+                        "of x from the cuBLAS form's", plain_ms_is="the cuBLAS form (the twin) in a CUDA graph",
+                        graph_ms=g["graph_ms"], share_of_bound_in_graph=g["bound_ms"] / g["graph_ms"],
+                        edge_cases=edges, cases=out)
+
+
 def check_kernels(torch, T, dev):
-    """Phase 3: K1-K6 against their twins at flagship shapes."""
+    """Phase 3: K1-K7 against their twins at flagship shapes."""
     from bundlefusion_tpu_torch.io import framewire
     from bundlefusion_tpu_torch.io.synthetic import generate_sequence
     from bundlefusion_tpu_torch.ops import preprocess as pp
@@ -1471,8 +1729,10 @@ def check_kernels(torch, T, dev):
     k5 = check_k5(torch, dev, cache, poses, cache_cam)
     torch.cuda.empty_cache()
     k6 = check_k6(torch, dev, cache, poses, cache_cam)
+    torch.cuda.empty_cache()
+    k7 = check_k7(torch, dev)
     check_stamps(torch, dev)
-    return [k1, k2, k3, k4, k5, k6]
+    return [k1, k2, k3, k4, k5, k6, k7]
 
 
 def stamped_chunk(s) -> None:
@@ -1642,7 +1902,8 @@ def run_slice(torch, T, dev, kernels_out):
     ints = ("num_keys", "filtered_matches", "pairs_valid", "corr_cursor", "alloc_overflow", "upd_truncated",
             "patch_overflow", "reint_frames", "ring_miss", "blocks_touched", "active_blocks", "lost_chunks")
     for r in recs:
-        phase("slice", "runlog " + json.dumps({k: r[k] for k in ("chunk", "chunk_valid", "kf_valid") + ints}))
+        phase("slice", "runlog " + json.dumps({k: r[k] for k in ("chunk", "chunk_valid", "kf_valid") + ints
+                                               + ("pcg_rows", "pcg_iters_run")}))
     want = expected_launches(cfg, len(recs))
     phase("slice", f"kernel launches in the timed pass: {launches} over {len(recs)} chunks (K3 from the solves' "
           f"count {want['assemble']}: {bc_solves(cfg, len(recs))})")
@@ -1690,12 +1951,12 @@ def counted_kernels() -> dict:
     from bundlefusion_tpu_torch.fusion.tsdf import integrate_blocks
     from bundlefusion_tpu_torch.ops.preprocess import fused_preprocess
     from bundlefusion_tpu_torch.solver.residuals import dense_pair_blocks
-    from bundlefusion_tpu_torch.solver.system import assemble_system
+    from bundlefusion_tpu_torch.solver.system import assemble_system, pcg_solve
     from bundlefusion_tpu_torch.utils.timeline import stamp
 
     return {"tsdf_integrate": integrate_blocks, "preprocess": fused_preprocess, "assemble": assemble_system,
             "sift_sample": sample_window, "dense_verify": dense_verify_sums, "dense_pairs": dense_pair_blocks,
-            "stamp": stamp}
+            "pcg": pcg_solve, "stamp": stamp}
 
 
 def reset_launches() -> None:
@@ -1716,8 +1977,8 @@ def bc_solves(cfg, chunks: int) -> str:
 def expected_launches(cfg, chunks: int) -> dict[str, int]:
     """Kernel launches of a pass of ``chunks`` chunks: one K1 and one K2 per
     chunk; K4 twice (orientation, descriptor) per SIFT octave of each chunk;
-    K3 once per GN iteration of the local solve (two prune rounds) and of
-    the global solve (one round, from the second chunk on); K6 once per GN
+    K3 and K7 once per GN iteration of the local solve (two prune rounds)
+    and of the global solve (one round, from the second chunk on); K6 once per GN
     iteration of each solve whose dense term is on; K5 twice per
     chunk (the filter, the opt-verify) and once per global match (from the
     second chunk on); the timeline's stamps twice per stage the chunk runs
@@ -1735,6 +1996,7 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
     dense = 2 * bc.global_gn_iters if bc.use_dense_global else 0  # global_dense, each GN iteration
     return {"tsdf_integrate": chunks, "preprocess": chunks, "sift_sample": 2 * octaves * chunks,
             "assemble": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters,
+            "pcg": chunks * 2 * bc.local_gn_iters + (chunks - 1) * bc.global_gn_iters,
             "dense_pairs": chunks * 2 * bc.local_gn_iters * bc.use_dense_local
             + (chunks - 1) * bc.global_gn_iters * bc.use_dense_global,
             "dense_verify": 3 * chunks - 1, "stamp": 16 * chunks + (2 + dense) * (chunks - 1) + 2 * gcs}
@@ -1742,16 +2004,16 @@ def expected_launches(cfg, chunks: int) -> dict[str, int]:
 
 def check_launches(launches: dict[str, int], want: dict[str, int], what: str) -> None:
     """K1, K2, K4, K5 and the stamps as ``expected_launches`` counts them;
-    K3 and K6 at least once per solve iteration counted there (a
+    K3, K6 and K7 at least once per solve iteration counted there (a
     relocalization or revalidation solves more)."""
     exact = {k: launches[k] for k in ("tsdf_integrate", "preprocess", "sift_sample", "dense_verify", "stamp")}
-    if exact != {k: want[k] for k in exact} or any(launches[k] < want[k] for k in ("assemble", "dense_pairs")):
-        raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3 and K6 at least)")
+    if exact != {k: want[k] for k in exact} or any(launches[k] < want[k] for k in ("assemble", "dense_pairs", "pcg")):
+        raise AssertionError(f"{what}: kernel launches {launches}, expected {want} (K3, K6 and K7 at least)")
 
 
 def record_launches(kernels_out, path: str, launches: dict[str, int]) -> None:
     """Attach a path's launch counts to the kernels' entries; every kernel
-    of the path (K1-K6; the stamps are counted where the timeline is) must
+    of the path (K1-K7; the stamps are counted where the timeline is) must
     have launched."""
     for k in kernels_out:
         k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
@@ -3057,6 +3319,111 @@ def run_dense_reference(torch, T, dev) -> None:
     del bf, snap, scan
 
 
+PCG_CELLS = ("bf640-1cm.room-sweep", "bf640-1cm-denseglobal.room-sweep")
+PCG_CHUNKS = (40, 100, 145)
+PCG_SEED = 2147480123
+
+
+def run_pcg_systems(torch, T, dev) -> None:
+    """Phase 17: K7 on the systems the global solve assembled in a scan of
+    each of ``PCG_CELLS`` (its last GN iteration's H, b and free slots at
+    ``PCG_CHUNKS``, copied by a probe captured with the stage), against the
+    cuBLAS form (``pcg_within``), reruns bit-identical, each timed in a
+    CUDA graph beside its bound; the scan's runlog counters ``pcg_rows`` and
+    ``pcg_iters_run``, and its global_solve and local_ba device times by
+    chunk (medians of the stamps, chunk 0 and the flush chunk left out)."""
+    from benchmark import drive, spec
+    from bundlefusion_tpu_torch import bench
+    from bundlefusion_tpu_torch.solver import gn, system
+
+    smi = bench.device_line(dev)
+    solve = gn.pcg_solve
+    failed = []
+    for name in PCG_CELLS:
+        cell = spec.cell(name)
+        cfg = spec.port_config(cell.config)
+        bc, ac = cfg.bundling, cfg.app
+        frames = max(PCG_CHUNKS) * bc.submap_size + bc.chunk_size
+        scan = drive.make_scan(cell.mix, ac.input_width, ac.input_height, PCG_SEED, dev, frames=frames)
+        m = 6 * bc.max_num_images
+        probe = (torch.zeros(m, m, device=dev), torch.zeros(m, device=dev),
+                 torch.zeros(bc.max_num_images, dtype=torch.bool, device=dev))
+
+        def pcg_solve(H, b, num_iters, tol=1e-10, free_mask=None):
+            """The solve as the GN loop calls it; a global one's system is
+            copied into ``probe`` too (a device copy, captured with the
+            stage): the probe holds the chunk's last GN iteration's."""
+            if H.shape[0] == m:
+                for dst, src in zip(probe, (H, b, free_mask)):
+                    dst.copy_(src)
+            return solve(H, b, num_iters, tol, free_mask)
+
+        gn.pcg_solve = pcg_solve
+        try:
+            bf = drive.pipeline_factory(scan, cfg, dev)()
+            snaps = {}
+            run_stage = bf._step.run
+
+            def run(stage, fn, *args):
+                c = bf.chunk_count
+                out = run_stage(stage, fn, *args)
+                if stage == "global_solve" and c in PCG_CHUNKS:
+                    snaps[c] = tuple(x.clone() for x in probe)
+                return out
+
+            bf._step.run = run
+            t0 = time.perf_counter()
+            for i in range(frames):
+                bf.push_frame(scan.depth[i], scan.color[i])
+            bf.flush()
+            dt = time.perf_counter() - t0
+            del bf._step.run
+            bf.outputs()
+            stats = bf.graph_stats["global_solve"]
+        finally:
+            gn.pcg_solve = solve
+        recs = chunk_records(bf)
+        kept = [r for r in recs[1:] if not r["timeline"]["flush"]]
+        med = {span: round(statistics.median(r["timeline"]["device"][span][1] - r["timeline"]["device"][span][0]
+                                             for r in kept) * 1e3, 3) for span in ("global_solve", "local_ba")}
+        phase("pcgsys", f"{name} ({smi}): {frames} frames from seed {PCG_SEED} in {dt:.2f} s with the probe, "
+              f"global_solve {stats}; device ms a chunk (medians of {len(kept)} chunks) {json.dumps(med)}; "
+              f"pcg_rows / pcg_iters_run at chunks 1, 10, 40, 100, 145: "
+              f"{[(r['pcg_rows'], r['pcg_iters_run']) for r in recs if r['chunk'] in (1, 10, 40, 100, 145)]}; "
+              f"iterations run a solve, median {statistics.median(r['pcg_iters_run'] for r in kept)} of "
+              f"{bc.global_gn_iters * bc.global_pcg_iters}")
+        if not (stats["captured"] and stats["replays"] > 0) or sorted(snaps) != list(PCG_CHUNKS):
+            raise AssertionError(f"{name}: global_solve not replayed with the probe ({stats}) or chunks missing "
+                                 f"{sorted(snaps)}")
+        for c in PCG_CHUNKS:
+            H, b, free = snaps[c]
+            args = (H, b, bc.global_pcg_iters, 1e-10, free)
+            got, again = system.pcg_solve(*args), system.pcg_solve(*args)
+            want = system._pcg_solve_torch(*args)
+            ref = system._pcg_solve_torch(H.double(), b.double(), *args[2:])
+            same = torch.equal(got.x, again.x) and torch.equal(got.final_rz, again.final_rz)
+            cmp = pcg_against(torch, got, want, H, b, ref)
+            gms = graph_ms(torch, lambda: system.pcg_solve(*args), calls=10, n=5)
+            plain_ms = graph_ms(torch, lambda: system._pcg_solve_torch(*args), calls=2, n=5)
+            bnd = pcg_bound(cmp["rows"], cmp["iters_run"])
+            phase("pcgsys", f"{name} chunk {c} (last GN iteration): {cmp['rows']} live rows, {cmp['iters_run']} "
+                  f"iterations (cuBLAS form {cmp['iters_run_cublas']}); reruns bit-identical {same}; x within "
+                  f"{cmp['x_rel']:.3g} of the cuBLAS form's (1e-4: {cmp['x_rel'] <= 1e-4}); from the float64 "
+                  f"iterations' x: K7 {cmp['x_rel_f64']:.3g}, cuBLAS form {cmp['x_rel_f64_cublas']:.3g}; |Hx - b| "
+                  f"{cmp['residual']:.5g} against {cmp['residual_cublas']:.5g} (ratio "
+                  f"{cmp['residual'] / cmp['residual_cublas']:.4f}), rz {cmp['rz']:.4g} against "
+                  f"{cmp['rz_cublas']:.4g}; K7 {gms:.4f} ms in a graph, cuBLAS form {plain_ms:.4f} ms; bound "
+                  f"{bnd['bound_ms']:.4f} ms (card), {bnd['cluster_bound_ms']:.4f} ms (16 SMs)")
+            if not (same and pcg_within(cmp)):
+                failed.append((name, c, cmp, same))
+            del got, again, want, ref
+        del bf, snaps, scan, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"K7 against the cuBLAS form (cell, chunk, comparison, reruns equal): {failed}")
+
+
 def bench_subprocess(name: str, env_extra: dict, smi: str) -> dict:
     """``python -m bundlefusion_tpu_torch.bench`` as a user runs it; its
     output goes to ``chiprun_out/bench_<name>.log``. Checks the result
@@ -3132,7 +3499,7 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 OUR_KERNELS = {"tsdf_fuse_kernel": "tsdf_integrate", "preprocess_kernel": "preprocess",
                "assemble_flags_kernel": "assemble pass 1", "assemble_rows_kernel": "assemble pass 2",
                "sift_sample_kernel": "sift_sample", "dense_verify_kernel": "dense_verify", "dense_pairs_kernel": "dense_pairs",
-               "dense_pairs_finish_kernel": "dense_pairs finish", "stamp_kernel": "stamp"}
+               "dense_pairs_finish_kernel": "dense_pairs finish", "pcg_kernel": "pcg", "stamp_kernel": "stamp"}
 # the host's calls that put work on the device: a kernel launch, a whole
 # CUDA graph's launch, an asynchronous copy or fill
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
@@ -3720,6 +4087,7 @@ def main() -> int:
     timed("bench", run_bench, torch, T, dev, kern, seq)
     timed("graphs", run_graphs, torch, T, dev, kern, seq, cfg)
     timed("denseref", run_dense_reference, torch, T, dev)
+    timed("pcgsys", run_pcg_systems, torch, T, dev)
 
     print(smi)
     print(json.dumps({"kernels": kern}))

@@ -3,7 +3,7 @@ CUDA graphs' output storage.
 
 These tests need an NVIDIA card and skip elsewhere. They import neither JAX
 nor the JAX package, so they run on a machine without JAX (from the repo
-root, whose ``chip_smoke.py`` makes the K3, K4 and K5 inputs):
+root, whose ``chip_smoke.py`` makes the K3-K7 inputs):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py
 """
@@ -26,8 +26,9 @@ from bundlefusion_tpu_torch.io.synthetic import generate_sequence
 from bundlefusion_tpu_torch.ops import preprocess as pp
 from bundlefusion_tpu_torch.solver import residuals, system
 from bundlefusion_tpu_torch.utils import graphs, timeline
-from chip_smoke import (K3_EDGE_CASES, K5_EDGE_CASES, K6_EDGE_CASES, assembly_edge_inputs, assembly_inputs,
-                        dense_outputs, k5_cases, k6_cases, pair_edge_inputs, program_outputs_survive, sift_inputs,
+from chip_smoke import (K3_EDGE_CASES, K5_EDGE_CASES, K6_EDGE_CASES, K7_CASES, K7_EDGE_CASES, assembly_edge_inputs,
+                        assembly_inputs, dense_outputs, k5_cases, k6_cases, pair_edge_inputs, pcg_against,
+                        pcg_edge_inputs, pcg_inputs, pcg_within, program_outputs_survive, sift_inputs,
                         verify_edge_inputs)
 
 pytestmark = pytest.mark.cuda
@@ -385,6 +386,73 @@ def test_k6_replays_in_a_graph(dev, pair_inputs):
     assert prog.replays == 2 and residuals.dense_pair_blocks.launches == launches + 2
 
 
+def _k7_args(dev, case):
+    arrays, iters = pcg_inputs(case)
+    n = arrays[4].shape[0]
+    H, b = system.assemble_system(n, *(torch.as_tensor(a, device=dev) for a in arrays))
+    return H, b, iters, 1e-10, torch.as_tensor(arrays[4], device=dev)
+
+
+@pytest.mark.parametrize("case", list(K7_CASES))
+def test_k7_kernel_matches_twin(dev, case):
+    """The local shape (n = 11) and the global one (1,200 slots; 7, 64 and
+    146 keyframes, a slot inside the live bound not free): one launch a
+    call, reruns bit-identical, x within 1e-4 of the twin's (the cuBLAS
+    form) in norm, the residual within 1.1 times the twin's, the same live
+    rows and zeros past them."""
+    args = _k7_args(dev, case)
+    launches = system.pcg_solve.launches
+    got = system.pcg_solve(*args)
+    again = system.pcg_solve(*args)
+    want = system._pcg_solve_torch(*args)
+    torch.cuda.synchronize()
+    assert system.pcg_solve.launches == launches + 2
+    assert torch.equal(got.x, again.x) and torch.equal(got.final_rz, again.final_rz)
+    cmp = pcg_against(torch, got, want, args[0], args[1])
+    assert pcg_within(cmp), cmp
+    assert bool((got.x[cmp["rows"]:] == 0).all()) and abs(cmp["iters_run"] - cmp["iters_run_cublas"]) <= 1, cmp
+
+
+@pytest.mark.parametrize("case", K7_EDGE_CASES)
+def test_k7_edge_cases(dev, case):
+    """Nothing free, a system solved in the first iteration (both bit for
+    bit with the twin, iterations included), a zero diagonal entry (its x
+    0 in both)."""
+    H, b, free = (torch.as_tensor(a, device=dev) for a in pcg_edge_inputs(case))
+    got = system.pcg_solve(H, b, 64, 1e-10, free)
+    want = system._pcg_solve_torch(H, b, 64, 1e-10, free)
+    if case == "zero_diagonal":
+        assert pcg_within(pcg_against(torch, got, want, H, b))
+        assert float(got.x[6 * 5 + 2]) == 0.0 == float(want.x[6 * 5 + 2])
+    else:
+        assert torch.equal(got.x, want.x) and torch.equal(got.final_rz, want.final_rz)
+        assert (int(got.rows), int(got.iters_run)) == (int(want.rows), int(want.iters_run))
+        assert int(got.iters_run) == (0 if case == "nothing_free" else 1)
+
+
+def test_k7_replays_in_a_graph(dev):
+    """Captured once at 1,200 slots, K7 replays to the twin's result while
+    the live bound changes between replays: systems of 7, 146 and 64
+    keyframes copied into the captured inputs in place."""
+    systems = [_k7_args(dev, c) for c in ("global_64", "global_7", "global_146")]
+    H, b, iters, tol, free = (x.clone() if isinstance(x, torch.Tensor) else x for x in systems[0])
+    exe = graphs.Executable(dev, None)
+    prog = exe.program("pcg", system.pcg_solve)
+    exe.stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(exe.stream):
+        prog(H, b, iters, tol, free)  # eager, then captured
+        launches = system.pcg_solve.launches
+        for Hs, bs, _, _, fs in systems[1:] + systems[:1]:
+            H.copy_(Hs)
+            b.copy_(bs)
+            free.copy_(fs)
+            got = prog(H, b, iters, tol, free)
+            torch.cuda.current_stream().synchronize()
+            cmp = pcg_against(torch, got, system._pcg_solve_torch(Hs, bs, iters, tol, fs), Hs, bs)
+            assert pcg_within(cmp) and cmp["rows"] == int(system.live_rows(fs, bs.shape[0], dev)), cmp
+    assert prog.replays == 3 and system.pcg_solve.launches == launches + 3
+
+
 def test_stamps_replay_in_a_graph(dev):
     """A captured stamp reads its row on the device: each replay stamps the
     row the chunk tensor holds then (an offset of -1 after the program
@@ -493,3 +561,11 @@ def test_wrappers_reject_bad_inputs(dev, frames):
                 (P, pa, pb, on.int(), cache), (P, pa, pb, on, dataclasses.replace(cache, grad=cache.grad[..., :1]))):
         with pytest.raises(ValueError):
             residuals.dense_pair_blocks(*bad, CameraModel(*ecam), BC, 0.5, 0.1)
+    H, b, iters, tol, free = _k7_args(dev, "local_11")
+    for bad in ((H.double(), b, iters, tol, free), (H, b[:-6], iters, tol, free), (H, b, iters, tol, free.int()),
+                (H, b, -1, tol, free)):
+        with pytest.raises(ValueError):
+            system.pcg_solve(*bad)
+    m = 6 * 2048  # 2,048 slots: the vectors alone exceed a CTA's shared memory
+    with pytest.raises(ValueError):
+        system.pcg_solve(torch.empty((m, m), device=dev), torch.zeros(m, device=dev), 4)

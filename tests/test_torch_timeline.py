@@ -24,7 +24,12 @@ and host spans on one clock (on the CPU the stamps' twin reads the host's
   valid pixels over the live pairs and the associations, equal with the
   chunk step's programs run eagerly (``disable_graphs``); a checkpoint
   keeps them, and one saved without them restores them as 0; without the
-  term the counters read 0 and nothing is stamped.
+  term the counters read 0 and nothing is stamped;
+* each chunk's record carries its global solve's PCG counters: the live
+  rows (6 x (the last free keyframe slot + 1)) and the iterations run
+  before convergence over the GN iterations; 0 at chunk 0, which solves
+  nothing globally; equal eagerly, and kept by a checkpoint as the dense
+  term's are.
 
 64x48 at the tiny configuration, 15 frames: chunks 0-2 and a flush chunk,
 ``gc`` after chunks 1 and 3; the dense term's runs at 128x96 (where the
@@ -344,6 +349,47 @@ def test_checkpoint_keeps_the_dense_counters(dense_runs, tmp_path, saved):
         want = torch.zeros_like(want)
     assert bool(bf.state.dense_counts.any())
     assert torch.equal(load_checkpoint(path, device="cpu").state.dense_counts, want)
+
+
+@pytest.mark.parametrize("which", ("sparse", "dense"))
+def test_pcg_counters(run, dense_runs, which):
+    """At 64x48 no keyframe is kept, so nothing is free and no row is
+    solved; at 128x96 (the dense runs) every keyframe is."""
+    bf = run[0] if which == "sparse" else dense_runs["graphed"]
+    bc = bf.config.bundling
+    g = bf.state.graph
+    recs = _records(bf)
+    assert [recs[0][k] for k in tstep.PCG_FIELDS] == [0, 0]
+    for r in recs[1:]:
+        c = r["chunk"]
+        if which == "sparse":
+            assert not bool(g.valid.any()) and (r["pcg_rows"], r["pcg_iters_run"]) == (0, 0), c
+            continue
+        assert bool(g.valid[: c + 1].all()) and r["pcg_rows"] == 6 * (c + 1), c
+        assert 1 <= r["pcg_iters_run"] <= bc.global_gn_iters * bc.global_pcg_iters, c
+
+
+def test_graphed_and_eager_pcg_counters_are_equal(dense_runs):
+    a, b = (_records(dense_runs[m]) for m in ("graphed", "eager"))
+    assert [[r[k] for k in tstep.PCG_FIELDS] for r in a] == [[r[k] for k in tstep.PCG_FIELDS] for r in b]
+    assert a[-1]["pcg_rows"] > 0
+
+
+@pytest.mark.parametrize("saved", ("with_counters", "before_counters"))
+def test_checkpoint_keeps_the_pcg_counters(dense_runs, tmp_path, saved):
+    bf = dense_runs["graphed"]
+    path = str(tmp_path / "pcg.ckpt")
+    save_checkpoint(bf, path)
+    want = bf.state.pcg_counts
+    if saved == "before_counters":  # a checkpoint written before the counters existed
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        del data["device"]["pcg_counts"]
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+        want = torch.zeros_like(want)
+    assert bool(bf.state.pcg_counts.any())
+    assert torch.equal(load_checkpoint(path, device="cpu").state.pcg_counts, want)
 
 
 def test_sparse_pipeline_has_no_dense_term(run):
